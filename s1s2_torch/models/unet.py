@@ -1,0 +1,145 @@
+"""UNetSmall — the conditional denoiser, NHWC, HWIO weights.
+
+Port of the JAX package's ``models/unet.py``: a 3-level encoder/decoder of
+(3×3 conv → ReLU)×2 blocks with 2×2 max-pool down and 2×2 stride-2
+transposed-conv up, skip concatenation ordered [up, skip], the raw integer
+timestep as one extra input channel, a 1×1 head and an optional s×s
+space-to-depth stem (``stem_s2d``) that runs the whole body at (H/s, W/s).
+
+Compute runs in ``compute_dtype`` (bf16 on the card, where the 3×3 convs go
+through the hand-written kernel; f32 is a parity mode for the CPU). The
+parameters are f32, as in the JAX model.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from s1s2_torch.ops.conv3x3 import conv3x3_relu
+from s1s2_torch.ops.pixel_shuffle import (depth_to_space, ps_conv_transpose_2x2,
+                                          space_to_depth)
+
+BLOCKS = ("down1", "down2", "down3", "conv3", "conv2", "conv1")
+UPS = ("up3", "up2", "up1")
+
+
+def _param(*shape) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=torch.float32), requires_grad=False)
+
+
+def max_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2×2 stride-2 max-pool, NHWC."""
+    B, H, W, C = x.shape
+    return x.reshape(B, H // 2, 2, W // 2, 2, C).amax(dim=(2, 4))
+
+
+def conv1x1(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """1×1 conv as one matmul in x's dtype, then the bias add in x's dtype."""
+    Ci, Co = kernel.shape[2], kernel.shape[3]
+    y = torch.matmul(x.reshape(-1, Ci), kernel.reshape(Ci, Co).to(x.dtype))
+    return y.reshape(*x.shape[:-1], Co) + bias.to(x.dtype)
+
+
+def input_map(x_and_cond: torch.Tensor, t_idx: torch.Tensor, s: int,
+              dtype: torch.dtype) -> torch.Tensor:
+    """(x_t ‖ cond) → s2d stem → ‖ raw t channel (cast to f32 first, then to
+    the compute dtype) → contiguous NHWC in ``dtype``."""
+    xf = x_and_cond.float()
+    if s > 1:
+        xf = space_to_depth(xf, s)
+    B, H, W, _ = xf.shape
+    t_map = t_idx.float().reshape(B, 1, 1, 1).expand(B, H, W, 1)
+    return torch.cat([xf, t_map], dim=-1).to(dtype).contiguous()
+
+
+class Conv3x3(nn.Module):
+    def __init__(self, ci: int, co: int):
+        super().__init__()
+        self.kernel = _param(3, 3, ci, co)
+        self.bias = _param(co)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the bias rounds to the compute dtype first, as flax's nn.Conv does
+        return conv3x3_relu(x, self.kernel.to(x.dtype).contiguous(),
+                            self.bias.to(x.dtype).float())
+
+
+class DoubleConv(nn.Module):
+    def __init__(self, ci: int, co: int):
+        super().__init__()
+        self.conv1 = Conv3x3(ci, co)
+        self.conv2 = Conv3x3(co, co)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.conv1(x))
+
+
+class UpPS(nn.Module):
+    def __init__(self, ci: int, co: int):
+        super().__init__()
+        self.kernel = _param(2, 2, ci, co)
+        self.bias = _param(co)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return ps_conv_transpose_2x2(x, self.kernel, self.bias)
+
+
+class Conv1x1(nn.Module):
+    def __init__(self, ci: int, co: int):
+        super().__init__()
+        self.kernel = _param(1, 1, ci, co)
+        self.bias = _param(co)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv1x1(x, self.kernel, self.bias)
+
+
+class UNetSmall(nn.Module):
+    """``forward(x_and_cond (B,H,W,C_xt+C_cond), t_idx (B,)) → (B,H,W,out_ch)``
+    float32. ``in_ch`` counts the x_t and cond channels together."""
+
+    def __init__(self, out_ch: int = 4, base_ch: int = 96, stem_s2d: int = 1,
+                 in_ch: int = 8, compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        b, s = base_ch, stem_s2d
+        self.out_ch, self.base_ch, self.stem_s2d = out_ch, base_ch, stem_s2d
+        self.compute_dtype = compute_dtype
+        self.inc = Conv3x3(in_ch * s * s + 1, b)
+        self.down1 = DoubleConv(b, 2 * b)
+        self.down2 = DoubleConv(2 * b, 4 * b)
+        self.down3 = DoubleConv(4 * b, 8 * b)
+        self.up3 = UpPS(8 * b, 4 * b)
+        self.conv3 = DoubleConv(8 * b, 4 * b)
+        self.up2 = UpPS(4 * b, 2 * b)
+        self.conv2 = DoubleConv(4 * b, 2 * b)
+        self.up1 = UpPS(2 * b, b)
+        self.conv1 = DoubleConv(2 * b, b)
+        self.outc = Conv1x1(b, out_ch * s * s)
+
+    def forward(self, x_and_cond: torch.Tensor, t_idx: torch.Tensor) -> torch.Tensor:
+        s = self.stem_s2d
+        x = input_map(x_and_cond, t_idx, s, self.compute_dtype)
+        e1 = self.inc(x)
+        e2 = max_pool2(self.down1(e1))
+        e3 = max_pool2(self.down2(e2))
+        e4 = max_pool2(self.down3(e3))
+        d3 = self.conv3(torch.cat([self.up3(e4), e3], dim=-1))
+        d2 = self.conv2(torch.cat([self.up2(d3), e2], dim=-1))
+        d1 = self.conv1(torch.cat([self.up1(d2), e1], dim=-1))
+        out = self.outc(d1)
+        if s > 1:
+            out = depth_to_space(out, s)
+        return out.float()
+
+
+def load_unet(state: Dict[str, torch.Tensor], out_ch: int = 4, base_ch: int = 96,
+              stem_s2d: int = 1, in_ch: int = 8,
+              compute_dtype: torch.dtype = torch.bfloat16,
+              device="cuda") -> UNetSmall:
+    """A UNetSmall holding ``state`` (see ``weights.params_from_numpy``)."""
+    model = UNetSmall(out_ch, base_ch, stem_s2d, in_ch, compute_dtype)
+    model.load_state_dict(state, strict=True)
+    return model.to(device)

@@ -1,0 +1,96 @@
+"""Where the time of the main path's int8 DDIM-1 goes on the card.
+
+    python -m s1s2_torch.trace_headline [--trace out.json]
+
+Prepares the main path as ``headline.run_headline`` does (24x4 student,
+evidence set, calibration, int8), then runs 10 DDIM-1 batches of 128 under
+``torch.profiler`` and prints, per iteration: the wall time on CUDA events,
+the device time of each kernel (the hand-written ones and PyTorch's own),
+and the device's idle share (1 − summed kernel time / wall time). With
+``--trace`` it also writes the Chrome trace. It needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Dict, List
+
+import torch
+
+from s1s2_torch.headline import STEPS, T_START, prepare, timing_batch
+from s1s2_torch.models.quant import make_quant_denoise_fn
+from s1s2_torch.sampling.samplers import ddim_anchored
+
+OURS = ("conv3x3_int8_kernel", "conv3x3_bf16_kernel", "ddim_update_kernel")
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v:
+            return float(v)
+    return 0.0
+
+
+BATCH, ITERS = 128, 10
+
+
+def breakdown(trace: str = "") -> Dict:
+    batch, iters = BATCH, ITERS
+    if not torch.cuda.is_available():
+        raise SystemExit("trace_headline needs a CUDA card")
+    p = prepare("24x4", "cuda")
+    cond_b, gt_b = timing_batch(p, batch)
+    fn = make_quant_denoise_fn(p["qp"], cond_b)
+    gen = torch.Generator(device=p["device"])
+    gen.manual_seed(0)
+
+    def step():
+        ddim_anchored(fn, gt_b, p["schedule"], T_START, STEPS, generator=gen)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        start.record()
+        for _ in range(iters):
+            step()
+        end.record()
+        torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end) / iters
+    rows: List[Dict] = []
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            rows.append({"name": evt.key, "ms": us / 1e3 / iters,
+                         "calls": evt.count / iters,
+                         "ours": any(k in evt.key for k in OURS)})
+    rows.sort(key=lambda r: -r["ms"])
+    busy = sum(r["ms"] for r in rows)
+    if trace:
+        prof.export_chrome_trace(trace)
+    return {"device": torch.cuda.get_device_name(0), "batch": batch, "iters": iters,
+            "wall_ms": wall_ms, "kernel_ms": busy,
+            "ours_ms": sum(r["ms"] for r in rows if r["ours"]),
+            "idle_share": max(0.0, 1.0 - busy / wall_ms), "kernels": rows}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--trace", default="", help="write the Chrome trace here")
+    args = ap.parse_args(argv)
+    r = breakdown(args.trace)
+    print(f"{r['device']} B={r['batch']}: wall {r['wall_ms']:.4f} ms/iter, kernels "
+          f"{r['kernel_ms']:.4f} ms/iter (hand-written {r['ours_ms']:.4f}), "
+          f"idle share {r['idle_share']:.3f}")
+    for k in r["kernels"][:20]:
+        print(f"  {k['ms']:9.4f} ms {k['calls']:6.1f}x {'*' if k['ours'] else ' '} {k['name'][:110]}")
+    print(json.dumps({k: v for k, v in r.items() if k != "kernels"}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

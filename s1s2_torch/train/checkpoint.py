@@ -1,0 +1,172 @@
+"""Read the JAX package's msgpack checkpoints without msgpack, flax or
+ml_dtypes.
+
+The committed checkpoints are ``flax.serialization.msgpack_serialize`` blobs:
+a msgpack map of maps whose leaves are msgpack *ext* values. Ext code 1 holds
+an ndarray as a nested msgpack array ``[shape, dtype-name, raw C-order
+bytes]``; ext code 3 a numpy scalar in the same form (the quantized
+artifact's metadata). Other ext codes, and flax's chunked form of arrays
+above 2^30 bytes, occur in no checkpoint of the repo and are refused.
+
+This module decodes all of that in pure Python and returns torch tensors
+(bfloat16 stays bfloat16, read with ``torch.frombuffer``), so weights load
+on a machine that has torch and numpy and nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Any, Dict, Tuple
+
+import torch
+
+_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+    "float32": torch.float32,
+    "float64": torch.float64,
+    "int8": torch.int8,
+    "int16": torch.int16,
+    "int32": torch.int32,
+    "int64": torch.int64,
+    "uint8": torch.uint8,
+    "bool": torch.bool,
+}
+
+_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
+
+
+class _Reader:
+    """A msgpack decoder over one bytes object: map, str, bin, array, int,
+    float, nil, bool, ext 8/16/32 and fixext."""
+
+    def __init__(self, data: bytes):
+        self.buf = memoryview(data)
+        self.pos = 0
+
+    def _take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.buf):
+            raise ValueError("truncated msgpack data")
+        out = self.buf[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def _unpack(self, fmt: str):
+        return struct.unpack(fmt, self._take(struct.calcsize(fmt)))[0]
+
+    def _ext(self, n: int):
+        code = self._unpack(">b")
+        return _decode_ext(code, bytes(self._take(n)))
+
+    def read(self) -> Any:
+        b = self._unpack(">B")
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self._map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return self._array(b & 0x0F)
+        if 0xA0 <= b <= 0xBF:
+            return str(self._take(b & 0x1F), "utf-8")
+        if b == 0xC0:
+            return None
+        if b == 0xC2:
+            return False
+        if b == 0xC3:
+            return True
+        if b in (0xC4, 0xC5, 0xC6):  # bin 8/16/32
+            n = self._unpack({0xC4: ">B", 0xC5: ">H", 0xC6: ">I"}[b])
+            return bytes(self._take(n))
+        if b in (0xC7, 0xC8, 0xC9):  # ext 8/16/32
+            n = self._unpack({0xC7: ">B", 0xC8: ">H", 0xC9: ">I"}[b])
+            return self._ext(n)
+        if b == 0xCA:
+            return self._unpack(">f")
+        if b == 0xCB:
+            return self._unpack(">d")
+        if 0xCC <= b <= 0xD3:  # uint 8..64, int 8..64
+            return self._unpack(">" + "BHIQbhiq"[b - 0xCC])
+        if 0xD4 <= b <= 0xD8:  # fixext 1/2/4/8/16
+            return self._ext(1 << (b - 0xD4))
+        if b in (0xD9, 0xDA, 0xDB):  # str 8/16/32
+            n = self._unpack({0xD9: ">B", 0xDA: ">H", 0xDB: ">I"}[b])
+            return str(self._take(n), "utf-8")
+        if b in (0xDC, 0xDD):
+            return self._array(self._unpack(">H" if b == 0xDC else ">I"))
+        if b in (0xDE, 0xDF):
+            return self._map(self._unpack(">H" if b == 0xDE else ">I"))
+        raise ValueError(f"unsupported msgpack type byte 0x{b:02x}")
+
+    def _array(self, n: int) -> list:
+        return [self.read() for _ in range(n)]
+
+    def _map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            k = self.read()
+            out[k] = self.read()
+        return out
+
+
+def unpackb(data: bytes) -> Any:
+    """Decode one msgpack object that spans all of ``data``."""
+    r = _Reader(data)
+    out = r.read()
+    if r.pos != len(data):
+        raise ValueError(f"{len(data) - r.pos} trailing bytes after msgpack object")
+    return out
+
+
+def _tensor_from_parts(shape, dtype_name, raw: bytes) -> torch.Tensor:
+    if isinstance(dtype_name, bytes):
+        dtype_name = dtype_name.decode()
+    if dtype_name not in _DTYPES:
+        raise ValueError(f"unsupported array dtype {dtype_name!r}")
+    dtype = _DTYPES[dtype_name]
+    shape = tuple(int(s) for s in shape)
+    if len(raw) == 0:
+        return torch.empty(shape, dtype=dtype)
+    # bytearray: a writable private copy, so the tensor owns its memory
+    return torch.frombuffer(bytearray(raw), dtype=dtype).reshape(shape)
+
+
+def _decode_ext(code: int, data: bytes) -> Any:
+    if code in (_EXT_NDARRAY, _EXT_NPSCALAR):
+        shape, dtype_name, raw = unpackb(data)
+        t = _tensor_from_parts(shape, dtype_name, raw)
+        return t if code == _EXT_NDARRAY else t.reshape(()).item()
+    raise ValueError(f"unsupported msgpack ext code {code}")
+
+
+def _refuse_chunked(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        if "__msgpack_chunked_array__" in tree:
+            raise ValueError("chunked (> 2^30 byte) arrays are not supported")
+        for v in tree.values():
+            _refuse_chunked(v)
+    return tree
+
+
+def msgpack_restore(data: bytes) -> Dict[str, Any]:
+    """The state dict of a flax msgpack blob, leaves as CPU torch tensors."""
+    return _refuse_chunked(unpackb(data))
+
+
+def load_params(path: str) -> Dict[str, Any]:
+    """Load a model-only msgpack checkpoint (the JAX package's
+    ``save_model`` artifact) as a nested dict of CPU tensors."""
+    with open(path, "rb") as f:
+        return msgpack_restore(f.read())
+
+
+def flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
+    """{("down1", "conv1", "kernel"): tensor, ...}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
