@@ -8,13 +8,18 @@ space-to-depth stem (``stem_s2d``) that runs the whole body at (H/s, W/s).
 
 Compute runs in ``compute_dtype`` (bf16 on the card, where the 3×3 convs go
 through the hand-written kernel; f32 is a parity mode for the CPU). The
-parameters are f32, as in the JAX model.
+parameters are f32, as in the JAX model. The JAX model's two up paths
+(``up_impl="convt"``, a flax ConvTranspose, and ``"ps"``) share one param
+tree and compute the same function; the port runs the ``ps`` form, so a
+tree from either loads as it is. :func:`init_params` gives a freshly
+initialised tree, drawn as flax's initialisers draw it.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -143,3 +148,37 @@ def load_unet(state: Dict[str, torch.Tensor], out_ch: int = 4, base_ch: int = 96
     model = UNetSmall(out_ch, base_ch, stem_s2d, in_ch, compute_dtype)
     model.load_state_dict(state, strict=True)
     return model.to(device)
+
+
+# flax's lecun_normal: a normal truncated to ±2 standard deviations, scaled
+# so that the variance is 1/fan_in; 0.8796... is the std of N(0,1) on [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def _truncated_normal(rng: np.random.Generator, shape, std: float) -> np.ndarray:
+    z = rng.standard_normal(shape)
+    bad = np.abs(z) > 2.0
+    while bad.any():
+        z[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(z) > 2.0
+    return (z * (std / _TRUNC_STD)).astype(np.float32)
+
+
+def init_params(out_ch: int = 4, base_ch: int = 96, stem_s2d: int = 1, seed: int = 0,
+                in_ch: int = 8) -> Dict[str, torch.Tensor]:
+    """A freshly initialised flat state (f32 CPU tensors), the counterpart of
+    the JAX model's ``model.init``: every kernel (HWIO) LeCun-normal with
+    variance 1/fan_in (fan_in = kH·kW·Ci), truncated at ±2σ; biases zero.
+    The draws come from ``np.random.default_rng(seed)`` in the sorted order
+    of the names, so they are not flax's bits but the same distribution."""
+    rng = np.random.default_rng(seed)
+    shapes = UNetSmall(out_ch, base_ch, stem_s2d, in_ch).state_dict()
+    state = {}
+    for name in sorted(shapes):
+        shape = tuple(shapes[name].shape)
+        if name.endswith(".kernel"):
+            arr = _truncated_normal(rng, shape, float(np.sqrt(1.0 / np.prod(shape[:-1]))))
+        else:
+            arr = np.zeros(shape, np.float32)
+        state[name] = torch.from_numpy(arr)
+    return state

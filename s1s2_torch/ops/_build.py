@@ -159,6 +159,10 @@ class Kernels:
             "s1s2k_conv3x3_int8": [P, P, P, P, P, I, I, I, I, I, F, I, I, P],
             # x, eps, x0, xn, n, s1m, sabg, sabn, s1mn, device, stream
             "s1s2k_ddim_update": [P, P, P, P, ctypes.c_int64, F, F, F, F, I, P],
+            # a, b, c, M, N, K, mode, device, stream
+            "s1s2k_matmul": [P, P, P, I, I, I, I, I, P],
+            # x, y, H, W, C, TH, device, stream
+            "s1s2k_halo_rows_x2": [P, P, I, I, I, I, I, P],
         }
         for name, argtypes in sigs.items():
             fn = getattr(self.lib, name)

@@ -57,9 +57,10 @@ def quantize_act(x: torch.Tensor, sx: float) -> torch.Tensor:
 
 
 def conv3x3_int8_acc_plain(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
-    """Exact int32 accumulator of the int8 conv. The largest |acc| on the
-    main path is 9·192·127·127 ≈ 2.8e7 > 2^24, so f32 would round; f64 is
-    exact below 2^53."""
+    """Exact int32 accumulator of the int8 conv. The largest |acc| is
+    9·Cin·127², 2.8e7 for the 24x4 student (Cin 192) and 1.1e8 < 2^31 for
+    the base-96 UNet (Cin 768): above 2^24, so f32 would round; f64 is exact
+    below 2^53."""
     acc = F.conv2d(_nchw(x8.double()), _oihw(w8.double()), padding=1)
     return acc.permute(0, 2, 3, 1).to(torch.int32)
 

@@ -1,0 +1,94 @@
+"""Tiled matrix product on the tensor cores: the probe of their rate.
+
+Port of the Pallas kernel ``pallas_matmul`` of the JAX package's
+``tools/probe_pallas_int8.py``: ``C = A·B`` for row-major ``A (M, K)`` and
+``B (K, N)``, in the probe's modes:
+
+* bf16 × bf16, f32 accumulation, out f32 or bf16 (rounded to nearest even);
+* int8 × int8, int32 accumulation, out int32. The sum is exact while
+  ``K·128² < 2³¹`` (int8 holds −128), that is ``K ≤ 131,071``.
+
+The CUDA kernel (``csrc/matmul.cu``) takes 128 × 128 tiles of C and K in
+steps of 32 (bf16) or 64 (int8). The Pallas grid drops any remainder
+silently; this wrapper raises on a shape that is not a tile multiple, and on
+any other dtype.
+
+The wrapper runs its plain PyTorch version when the tensors lie on the CPU
+and launches the kernel when they lie on a CUDA device; it never falls back
+from one to the other. ``matmul.launches`` counts the kernel launches. The
+PyTorch library calls of the probe (``torch.matmul``, ``torch._int_mm``) are
+yardsticks only; nothing here calls them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from s1s2_torch.ops import _build
+
+TILE_M = TILE_N = 128
+TILE_K = {torch.bfloat16: 32, torch.int8: 64}
+INT8_MAX_K = (2 ** 31 - 1) // 128 ** 2  # 131,071: |Σ a·b| ≤ K·128² stays in int32
+_MODES = {(torch.bfloat16, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
+          (torch.int8, torch.int32): 2}
+
+
+def _shapes(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype):
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"expected a (M, K) and b (K, N), got {tuple(a.shape)} "
+                         f"and {tuple(b.shape)}")
+    if a.dtype != b.dtype or (a.dtype, out_dtype) not in _MODES:
+        raise TypeError(f"matmul takes bf16 x bf16 -> f32 or bf16, or int8 x int8 -> "
+                        f"int32; got {a.dtype} x {b.dtype} -> {out_dtype}")
+    M, K = a.shape
+    N = b.shape[1]
+    if a.dtype == torch.int8 and K > INT8_MAX_K:
+        raise ValueError(f"int8 matmul: K={K} > {INT8_MAX_K}, the int32 sum could overflow")
+    return M, N, K
+
+
+def matmul_plain(a: torch.Tensor, b: torch.Tensor,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version. int8: an exact product (int64 on the CPU; on a card,
+    f64, exact below 2^53) cast to int32. bf16: an f32 product of the bf16
+    values with TF32 off, rounded once to ``out_dtype``."""
+    _shapes(a, b, out_dtype)
+    if a.dtype == torch.int8:
+        wide = torch.int64 if a.device.type == "cpu" else torch.float64
+        return torch.matmul(a.to(wide), b.to(wide)).to(torch.int32)
+    keep = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        y = torch.matmul(a.float(), b.float())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = keep
+    return y.to(out_dtype)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """a (M, K), b (K, N) → (M, N) in ``out_dtype``. Raises on a shape that
+    is not a tile multiple (on every device, so that the CPU path refuses
+    what the kernel refuses)."""
+    M, N, K = _shapes(a, b, out_dtype)
+    tk = TILE_K[a.dtype]
+    if M % TILE_M or N % TILE_N or K % tk:
+        raise ValueError(f"matmul kernel: M={M}, N={N} must be multiples of "
+                         f"{TILE_M} and K={K} of {tk} ({a.dtype}); the kernel does "
+                         f"not drop a remainder")
+    if a.device.type == "cpu":
+        return matmul_plain(a, b, out_dtype)
+    for name, t in (("a", a), ("b", b)):
+        if t.device != a.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be contiguous, 16-byte aligned, on {a.device}")
+    k = _build.kernels()
+    c = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    rc = k.s1s2k_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
+                        _MODES[(a.dtype, out_dtype)], a.device.index,
+                        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(rc, "matmul")
+    matmul.launches += 1
+    return c
+
+
+matmul.launches = 0

@@ -1,11 +1,20 @@
-"""GT-anchored DDIM (ε, linspace grid) — the main path's sampler.
+"""Diffusion samplers (ε and v), without classifier-free guidance.
 
-Port of ``_coef``, ``_ddim_linspace_scan`` and ``ddim_anchored`` of the JAX
-package's ``sampling/samplers.py``. The scan becomes a Python loop over the
-steps; each step is one denoiser call and one launch of the fused DDIM
-update (``ops/fused_elementwise.py``). The per-step coefficients are
-computed on the host from ``alpha_bar`` in float64 and cast to float32,
-exactly as the JAX sampler computes them.
+Port of the JAX package's ``sampling/samplers.py``. Each ``lax.scan``
+becomes a Python loop over the steps, one denoiser call per step. The
+per-step coefficients are computed on the host from ``alpha_bar`` in float64
+and cast to float32, exactly as the JAX samplers compute them; the
+arithmetic between denoiser calls is float32.
+
+The GT-anchored and pure-generation DDIM (``ddim_anchored``,
+``ddim_generate``) and the stride-1 chain of ``partial_ddim_from_gt`` run
+each step's update through the fused DDIM kernel
+(``ops/fused_elementwise.py``); the other samplers are plain PyTorch, as
+their JAX versions are plain XLA.
+
+JAX keys become ``torch.Generator``s. Where a JAX sampler draws noise from a
+key, the port draws it with ``generator`` on the device of its inputs, or
+takes it from ``noise`` (so a test can replay JAX's draws).
 """
 
 from __future__ import annotations
@@ -15,7 +24,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from s1s2_torch.core.parametrize import q_sample
+from s1s2_torch.core.parametrize import Parameterization, pred_to_x0_eps, q_sample
 from s1s2_torch.core.schedule import Schedule
 from s1s2_torch.ops.fused_elementwise import fused_ddim_update
 from s1s2_torch.sampling.grids import clamp_t, linspace_grid
@@ -23,9 +32,52 @@ from s1s2_torch.sampling.grids import clamp_t, linspace_grid
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
+def make_denoise_fn(model: Callable, cond: torch.Tensor) -> DenoiseFn:
+    """Bind a model ``(x_and_cond, t) → pred`` and its conditioning into
+    ``(x_t, t) → pred``; the concatenation order is [x_t, cond]."""
+    cond = cond.float()
+
+    def fn(x_t, t):
+        with torch.no_grad():
+            return model(torch.cat([x_t.float(), cond], dim=-1), t)
+
+    return fn
+
+
 def _coef(schedule: Schedule, idx: np.ndarray) -> np.ndarray:
     """Float64 ᾱ values (of the float32 table) at integer timesteps."""
     return schedule.alpha_bar_np().astype(np.float64)[idx]
+
+
+def _f32(a) -> np.ndarray:
+    return np.asarray(a, dtype=np.float32)
+
+
+def _t_vec(t: int, B: int, device) -> torch.Tensor:
+    return torch.full((B,), int(t), dtype=torch.int32, device=device)
+
+
+def _randn(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    return torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
+                       device=device)
+
+
+def _device(device, noise: Optional[torch.Tensor],
+            generator: Optional[torch.Generator]) -> torch.device:
+    """Where a sampler without input tensors runs: ``device`` if given, else
+    the device of ``noise`` or of ``generator``, else the card."""
+    if device is not None:
+        return torch.device(device)
+    if noise is not None:
+        return noise.device
+    if generator is not None:
+        return generator.device
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# ε-model, linspace convention (GT-anchored recon & pure generation)
+# ---------------------------------------------------------------------------
 
 
 def ddim_linspace_coefs(schedule: Schedule, t_start: int, steps: int):
@@ -34,9 +86,8 @@ def ddim_linspace_coefs(schedule: Schedule, t_start: int, steps: int):
     ts = linspace_grid(t_start, steps, schedule.T)
     a_cur = _coef(schedule, ts[:-1])
     a_next = _coef(schedule, ts[1:])
-    f32 = lambda a: np.asarray(a, dtype=np.float32)  # noqa: E731
-    return (ts, f32(np.sqrt(1.0 - a_cur)), f32(np.sqrt(a_cur + 1e-8)),
-            f32(np.sqrt(a_next)), f32(np.sqrt(1.0 - a_next)))
+    return (ts, _f32(np.sqrt(1.0 - a_cur)), _f32(np.sqrt(a_cur + 1e-8)),
+            _f32(np.sqrt(a_next)), _f32(np.sqrt(1.0 - a_next)))
 
 
 def _ddim_linspace_scan(denoise_fn: DenoiseFn, x_init: torch.Tensor,
@@ -48,8 +99,7 @@ def _ddim_linspace_scan(denoise_fn: DenoiseFn, x_init: torch.Tensor,
     B = x_init.shape[0]
     x, x0_hat = x_init, x_init
     for i in range(len(ts) - 1):
-        t = torch.full((B,), int(ts[i]), dtype=torch.int32, device=x.device)
-        eps = denoise_fn(x, t).float().contiguous()
+        eps = denoise_fn(x, _t_vec(ts[i], B, x.device)).float().contiguous()
         x0_hat, x = fused_ddim_update(x, eps, float(s1m[i]), float(sabg[i]),
                                       float(sabn[i]), float(s1mn[i]))
     return torch.clamp(x0_hat, clip[0], clip[1])
@@ -67,9 +117,193 @@ def ddim_anchored(denoise_fn: DenoiseFn, x_gt: torch.Tensor, schedule: Schedule,
     t_start = clamp_t(t_start, schedule.T)
     B = x_gt.shape[0]
     if noise is None:
-        noise = torch.randn(x_gt.shape, generator=generator, dtype=torch.float32,
-                            device=x_gt.device)
+        noise = _randn(x_gt.shape, generator, x_gt.device)
     sab = torch.full((B,), float(schedule.sqrt_alpha_bar[t_start]))
     s1m = torch.full((B,), float(schedule.sqrt_one_minus_alpha_bar[t_start]))
     x_t = q_sample(x_gt, noise, sab, s1m).contiguous()
     return _ddim_linspace_scan(denoise_fn, x_t, schedule, t_start, steps, clip)
+
+
+def ddim_generate(denoise_fn: DenoiseFn, shape: Tuple[int, ...], schedule: Schedule,
+                  t_start: int = 200, steps: int = 20,
+                  clip: Tuple[float, float] = (0.0, 1.0),
+                  noise: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None,
+                  device=None) -> torch.Tensor:
+    """Pure generation (ε): x_t ~ N(0, I) at full scale (or the stored
+    ``noise``), DDIM down the linspace grid, conditioned only through
+    denoise_fn. Like the JAX sampler it does not clamp ``t_start`` itself;
+    ``linspace_grid`` does."""
+    dev = _device(device, noise, generator)
+    x_t = (_randn(shape, generator, dev) if noise is None
+           else noise.to(dev, torch.float32)).contiguous()
+    return _ddim_linspace_scan(denoise_fn, x_t, schedule, t_start, steps, clip)
+
+
+# ---------------------------------------------------------------------------
+# round-unique grid convention (ε and v, deterministic or stochastic η)
+# ---------------------------------------------------------------------------
+
+
+def ddim_grid_sample(denoise_fn: DenoiseFn, x_init: torch.Tensor, schedule: Schedule,
+                     grid: np.ndarray, param: Parameterization = Parameterization.V,
+                     eta: float = 0.0, clip: Tuple[float, float] = (0.0, 1.0),
+                     return_traj: bool = False,
+                     noise: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None):
+    """Descending sweep over an ascending unique grid; at the lowest grid
+    point x_t ← x0̂. Returns that final array, clamped, or with
+    ``return_traj=True`` the pair ``(x0, (t_cur, traj))`` of per-step int32
+    timesteps and the x_t states the denoiser saw (step-major).
+
+    η>0 adds the stochastic DDIM term σ·z with
+    σ = η·√((1−ᾱ_prev)/(1−ᾱ_cur+1e-8)·max(0, 1−ᾱ_cur/ᾱ_prev)); the draws z
+    come from ``generator`` on x_init's device, one (B,H,W,C) draw per step,
+    or from ``noise`` of shape ``(len(grid),) + x_init.shape`` (replay).
+    """
+    grid = np.asarray(grid, np.int64)
+    n = len(grid)
+    a = _coef(schedule, grid)  # ascending t, descending ᾱ
+    order = np.arange(n - 1, -1, -1)
+    t_cur = grid[order]
+    a_cur = a[order]
+    a_prev = np.where(order > 0, a[np.maximum(order - 1, 0)], 1.0)  # dummy at last
+    sigma = float(eta) * np.sqrt(
+        (1.0 - a_prev) / (1.0 - a_cur + 1e-8) * np.clip(1.0 - a_cur / a_prev, 0.0, None))
+    dir_term = np.sqrt(np.clip((1.0 - a_prev) - sigma ** 2, 0.0, None))
+    sab, s1m = _f32(np.sqrt(a_cur)), _f32(np.sqrt(1.0 - a_cur))
+    sab_p, dirt, sig = _f32(np.sqrt(a_prev)), _f32(dir_term), _f32(sigma)
+    if noise is not None and tuple(noise.shape) != (n,) + tuple(x_init.shape):
+        raise ValueError(f"replay noise must be (len(grid),)+x_init.shape = "
+                         f"{(n,) + tuple(x_init.shape)}, got {tuple(noise.shape)}")
+    param = Parameterization(param)
+    B = x_init.shape[0]
+    x_t = x_init.float()
+    traj = []
+    for i in range(n):
+        if return_traj:
+            traj.append(x_t)
+        pred = denoise_fn(x_t, _t_vec(t_cur[i], B, x_t.device))
+        x0_pred, eps_pred = pred_to_x0_eps(param, x_t, pred, float(sab[i]), float(s1m[i]))
+        if i == n - 1:
+            x_t = x0_pred
+            break
+        x_next = float(sab_p[i]) * x0_pred + float(dirt[i]) * eps_pred
+        if eta > 0:
+            z = (noise[i].to(x_t.device, torch.float32) if noise is not None
+                 else _randn(x_t.shape, generator, x_t.device))
+            x_next = x_next + float(sig[i]) * z
+        x_t = x_next
+    x_t = torch.clamp(x_t, clip[0], clip[1])
+    if return_traj:
+        t_steps = torch.as_tensor(t_cur.astype(np.int32), device=x_t.device)
+        return x_t, (t_steps, torch.stack(traj))
+    return x_t
+
+
+def scaled_noise_init(shape: Tuple[int, ...], schedule: Schedule, t_start: int,
+                      generator: Optional[torch.Generator] = None,
+                      device=None) -> torch.Tensor:
+    """x_t = randn·√(1−ᾱ_{t_start}), the scale rounded to f32 — the
+    v-sampler's mean-free init."""
+    a_t = float(schedule.alpha_bar_np()[clamp_t(t_start, schedule.T)])
+    scale = float(np.float32(np.sqrt(1.0 - a_t)))
+    return _randn(shape, generator, _device(device, None, generator)) * scale
+
+
+# ---------------------------------------------------------------------------
+# ancestral DDPM (all T steps)
+# ---------------------------------------------------------------------------
+
+
+def ddpm_ancestral(denoise_fn: DenoiseFn, shape: Tuple[int, ...], schedule: Schedule,
+                   param: Parameterization = Parameterization.EPS,
+                   clip: Tuple[float, float] = (0.0, 1.0),
+                   noise: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None,
+                   device=None) -> torch.Tensor:
+    """Full ancestral DDPM from pure noise, T model calls.
+
+    ``noise`` (optional) replays an external draw stream: shape
+    ``(T,) + shape``, ``noise[0]`` the pure-noise init and ``noise[j]``
+    (j = 1..T−1) the draw after the mean of step j, at t = T−j; the step at
+    t = 0 adds no noise.
+    """
+    T = schedule.T
+    betas = schedule.betas.numpy().astype(np.float64)
+    alphas = 1.0 - betas
+    ab = schedule.alpha_bar_np().astype(np.float64)
+    order = np.arange(T - 1, -1, -1)
+    if noise is not None and tuple(noise.shape) != (T,) + tuple(shape):
+        raise ValueError(f"ddpm replay noise must be (T,)+shape = {(T,) + tuple(shape)}, "
+                         f"got {tuple(noise.shape)}")
+    dev = _device(device, noise, generator)
+    inv_sa = _f32(1.0 / np.sqrt(alphas[order]))
+    coef = _f32(betas[order] / np.sqrt(1.0 - ab[order] + 1e-8))
+    sab, s1m = _f32(np.sqrt(ab[order])), _f32(np.sqrt(1.0 - ab[order]))
+    scale = _f32(np.where(order > 0, np.sqrt(betas[order]), 0.0))
+    param = Parameterization(param)
+    x_t = (_randn(shape, generator, dev) if noise is None
+           else noise[0].to(dev, torch.float32))
+    B = shape[0]
+    for j, t in enumerate(order):
+        pred = denoise_fn(x_t, _t_vec(t, B, dev))
+        if param is Parameterization.EPS:
+            eps = pred.float()
+        else:
+            _, eps = pred_to_x0_eps(param, x_t, pred, float(sab[j]), float(s1m[j]))
+        mean = float(inv_sa[j]) * (x_t - float(coef[j]) * eps)
+        if t == 0:
+            x_t = mean
+            break
+        z = (noise[j + 1].to(dev, torch.float32) if noise is not None
+             else _randn(shape, generator, dev))
+        x_t = mean + float(scale[j]) * z
+    return torch.clamp(x_t, clip[0], clip[1])
+
+
+# ---------------------------------------------------------------------------
+# diagnostics
+# ---------------------------------------------------------------------------
+
+
+def partial_ddim_from_gt(denoise_fn: DenoiseFn, x_gt: torch.Tensor, schedule: Schedule,
+                         k: int, clip: Tuple[float, float] = (0.0, 1.0),
+                         noise: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Forward-diffuse GT to t=k, reverse k→0 with stride-1 deterministic
+    DDIM; the result is the final x_t of that chain (not x0̂), clamped."""
+    k = int(max(0, min(k, schedule.T - 1)))
+    B = x_gt.shape[0]
+    if noise is None:
+        noise = _randn(x_gt.shape, generator, x_gt.device)
+    sab = torch.full((B,), float(schedule.sqrt_alpha_bar[k]))
+    s1m = torch.full((B,), float(schedule.sqrt_one_minus_alpha_bar[k]))
+    x_t = q_sample(x_gt, noise, sab, s1m).contiguous()
+    grid = np.arange(k, -1, -1)
+    a_cur, a_next = _coef(schedule, grid[:-1]), _coef(schedule, grid[1:])
+    s1mc, sabg = _f32(np.sqrt(1.0 - a_cur)), _f32(np.sqrt(a_cur + 1e-8))
+    sabn, s1mn = _f32(np.sqrt(a_next)), _f32(np.sqrt(1.0 - a_next))
+    for i in range(k):
+        eps = denoise_fn(x_t, _t_vec(grid[i], B, x_t.device)).float().contiguous()
+        _, x_t = fused_ddim_update(x_t, eps, float(s1mc[i]), float(sabg[i]),
+                                   float(sabn[i]), float(s1mn[i]))
+    return torch.clamp(x_t, clip[0], clip[1])
+
+
+def one_step_recon(denoise_fn: DenoiseFn, x_gt: torch.Tensor, schedule: Schedule,
+                   t_small: int = 20, param: Parameterization = Parameterization.EPS,
+                   clip: Tuple[float, float] = (0.0, 1.0),
+                   noise: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Single-step x0 reconstruction at small t."""
+    t_small = clamp_t(t_small, schedule.T)
+    B = x_gt.shape[0]
+    if noise is None:
+        noise = _randn(x_gt.shape, generator, x_gt.device)
+    sab = torch.full((B,), float(schedule.sqrt_alpha_bar[t_small]))
+    s1m = torch.full((B,), float(schedule.sqrt_one_minus_alpha_bar[t_small]))
+    x_t = q_sample(x_gt, noise, sab, s1m)
+    pred = denoise_fn(x_t, _t_vec(t_small, B, x_gt.device))
+    x0_hat, _ = pred_to_x0_eps(param, x_t, pred, sab, s1m)
+    return torch.clamp(x0_hat, clip[0], clip[1])

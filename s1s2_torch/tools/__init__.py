@@ -1,0 +1,1 @@
+"""Probes and measurement tools of the port (run on a CUDA card)."""

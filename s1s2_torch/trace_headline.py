@@ -1,12 +1,18 @@
-"""Where the time of the main path's int8 DDIM-1 goes on the card.
+"""Where the time of a path goes on the card.
 
-    python -m s1s2_torch.trace_headline [--trace out.json]
+    python -m s1s2_torch.trace_headline [--path headline|line1|line2]
+                                        [--steps N] [--trace out.json]
 
-Prepares the main path as ``headline.run_headline`` does (24x4 student,
-evidence set, calibration, int8), then runs 10 DDIM-1 batches of 128 under
-``torch.profiler`` and prints, per iteration: the wall time on CUDA events,
-the device time of each kernel (the hand-written ones and PyTorch's own),
-and the device's idle share (1 − summed kernel time / wall time). With
+``headline`` (the default) prepares the main path as
+``headline.run_headline`` does (24x4 student, evidence set, calibration,
+int8), then runs 10 DDIM-1 batches of 128. ``line1`` and ``line2`` are the
+port's bench lines (``s1s2_torch.bench``) on the full-width base-96 UNet:
+bf16 GT-anchored DDIM at B=128 (``--steps`` steps from t=999, default 2:
+every step is one forward and one update, as in the bench's 50) and int8
+DPM-Solver++(2M)-5 at B=64, one untimed call, then 2 profiled calls. Under
+``torch.profiler`` it prints, per call: the wall time on CUDA events, the
+device time of each kernel (the hand-written ones and PyTorch's own), and
+the device's idle share (1 − summed kernel time / wall time). With
 ``--trace`` it also writes the Chrome trace. It needs a CUDA card.
 """
 
@@ -14,15 +20,17 @@ from __future__ import annotations
 
 import argparse
 import json
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import torch
 
+from s1s2_torch import bench
 from s1s2_torch.headline import STEPS, T_START, prepare, timing_batch
 from s1s2_torch.models.quant import make_quant_denoise_fn
 from s1s2_torch.sampling.samplers import ddim_anchored
 
-OURS = ("conv3x3_int8_kernel", "conv3x3_bf16_kernel", "ddim_update_kernel")
+OURS = ("conv3x3_int8_kernel", "conv3x3_bf16_kernel", "ddim_update_kernel",
+        "matmul_kernel", "halo_rows_x2_kernel")
 
 
 def _device_us(evt) -> float:
@@ -36,20 +44,10 @@ def _device_us(evt) -> float:
 BATCH, ITERS = 128, 10
 
 
-def breakdown(trace: str = "") -> Dict:
-    batch, iters = BATCH, ITERS
-    if not torch.cuda.is_available():
-        raise SystemExit("trace_headline needs a CUDA card")
-    p = prepare("24x4", "cuda")
-    cond_b, gt_b = timing_batch(p, batch)
-    fn = make_quant_denoise_fn(p["qp"], cond_b)
-    gen = torch.Generator(device=p["device"])
-    gen.manual_seed(0)
-
-    def step():
-        ddim_anchored(fn, gt_b, p["schedule"], T_START, STEPS, generator=gen)
-
-    for _ in range(3):
+def profile(step: Callable[[], object], iters: int, warmup: int, trace: str = "") -> Dict:
+    """``warmup`` untimed calls of ``step``, then ``iters`` under the profiler:
+    per call the wall time on CUDA events and the device time by kernel."""
+    for _ in range(warmup):
         step()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -72,19 +70,51 @@ def breakdown(trace: str = "") -> Dict:
     busy = sum(r["ms"] for r in rows)
     if trace:
         prof.export_chrome_trace(trace)
-    return {"device": torch.cuda.get_device_name(0), "batch": batch, "iters": iters,
+    return {"device": torch.cuda.get_device_name(0), "iters": iters,
             "wall_ms": wall_ms, "kernel_ms": busy,
             "ours_ms": sum(r["ms"] for r in rows if r["ours"]),
             "idle_share": max(0.0, 1.0 - busy / wall_ms), "kernels": rows}
 
 
+def breakdown(trace: str = "") -> Dict:
+    """The main path: int8 DDIM-1 of the 24x4 student at B=128."""
+    if not torch.cuda.is_available():
+        raise SystemExit("trace_headline needs a CUDA card")
+    p = prepare("24x4", "cuda")
+    cond_b, gt_b = timing_batch(p, BATCH)
+    fn = make_quant_denoise_fn(p["qp"], cond_b)
+    gen = torch.Generator(device=p["device"])
+    gen.manual_seed(0)
+
+    def step():
+        ddim_anchored(fn, gt_b, p["schedule"], T_START, STEPS, generator=gen)
+
+    return {"path": "headline", "batch": BATCH, **profile(step, ITERS, 3, trace)}
+
+
+def breakdown_bench(line: int, steps: int = 2, trace: str = "") -> Dict:
+    """Bench line 1 (bf16 DDIM, B=128, ``steps`` steps) or 2 (int8
+    DPM-Solver++(2M)-5, B=64) on the base-96 UNet."""
+    if not torch.cuda.is_available():
+        raise SystemExit("trace_headline needs a CUDA card")
+    state = bench.base96_state()
+    if line == 1:
+        step, batch = bench.make_line1(state, bench.LINE1_BATCH, steps), bench.LINE1_BATCH
+    else:
+        step, batch = bench.make_line2(state, bench.LINE2_BATCH), bench.LINE2_BATCH
+    return {"path": f"line{line}", "batch": batch, **profile(step, 2, 1, trace)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--path", choices=("headline", "line1", "line2"), default="headline")
+    ap.add_argument("--steps", type=int, default=2, help="line 1's DDIM steps")
     ap.add_argument("--trace", default="", help="write the Chrome trace here")
     args = ap.parse_args(argv)
-    r = breakdown(args.trace)
-    print(f"{r['device']} B={r['batch']}: wall {r['wall_ms']:.4f} ms/iter, kernels "
-          f"{r['kernel_ms']:.4f} ms/iter (hand-written {r['ours_ms']:.4f}), "
+    r = (breakdown(args.trace) if args.path == "headline"
+         else breakdown_bench(int(args.path[-1]), args.steps, args.trace))
+    print(f"{r['device']} {r['path']} B={r['batch']}: wall {r['wall_ms']:.4f} ms/iter, "
+          f"kernels {r['kernel_ms']:.4f} ms/iter (hand-written {r['ours_ms']:.4f}), "
           f"idle share {r['idle_share']:.3f}")
     for k in r["kernels"][:20]:
         print(f"  {k['ms']:9.4f} ms {k['calls']:6.1f}x {'*' if k['ours'] else ' '} {k['name'][:110]}")

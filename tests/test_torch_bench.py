@@ -1,0 +1,94 @@
+"""The port's bench (``python -m s1s2_torch.bench``) on the CPU at a small
+size, through the functions of its three lines: bench.py's metric names, the
+skip line of an absent headline rung and the fallback to the next one, and
+that a CPU run reports no device time."""
+
+import json
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from s1s2_torch import bench, headline
+from s1s2_torch.headline import CKPT_DIR, EXPECT_MAE
+from s1s2_torch.models.unet import init_params
+from s1s2_torch.ops.conv3x3 import conv3x3_relu, conv3x3_relu_int8
+
+
+def _small_lines(emit):
+    """bench.main's three lines at base 8, 32² (lines 1-2) and on 4 evidence
+    files of 64² (the headline), on the CPU; skip lines go to ``emit``."""
+    state = init_params(4, 8, 1, seed=bench.SEED)
+    small = dict(size=32, base_ch=8, device="cpu")
+    return [bench.bench_bf16_ddim(state, batch=2, steps=3, **small),
+            bench.bench_int8_dpm(state, batch=8, **small),
+            bench.bench_headline("cpu", n_files=4, size=64, emit=emit)]
+
+
+def test_bench_prints_the_three_lines_of_bench_py():
+    n = (conv3x3_relu.launches, conv3x3_relu_int8.launches)
+    skipped = []
+    out = _small_lines(skipped.append)
+    assert skipped == []
+    assert out == json.loads(json.dumps(out))  # each line prints as JSON
+    assert [o["metric"] for o in out] == [
+        "patches_per_sec_per_chip_50step_ddim_256px_bf16",
+        "patches_per_sec_per_chip_dpm2m5_int8_at_ddim20_quality_256px",
+        "patches_per_sec_per_chip_distill1_w24x4_int8_at_ddim20_quality_256px"]
+    for o in out:
+        assert o["unit"] == "patches/s" and o["device"] == "cpu"
+        assert o["value"] is None  # no device time on the CPU
+        assert "vs_baseline" not in o
+    line1, line2, head = out
+    assert line1["shape"] == [2, 32, 32, 4] and line1["finite"] and line1["steps"] == 3
+    assert line2["shape"] == [8, 32, 32, 4] and line2["finite"]
+    assert line2["grid"] == [0, 50, 100, 150, 200]
+    assert head["quality_checked"] and head["expect_mae"] == EXPECT_MAE["24x4"]
+    assert (conv3x3_relu.launches, conv3x3_relu_int8.launches) == n
+
+
+def test_absent_rung_prints_a_skip_line_and_falls_back(tmp_path, monkeypatch):
+    shutil.copy(CKPT_DIR / "distill_eps_student16x2.bf16.msgpack", tmp_path)
+    monkeypatch.setattr(headline, "CKPT_DIR", tmp_path)
+    skip = []
+    head = bench.bench_headline("cpu", n_files=4, size=64, emit=skip.append)
+    assert skip == [{"skipped": "w24x4", "reason": "checkpoint absent: "
+                     + str(tmp_path / "distill_eps_student24x4.bf16.msgpack")}]
+    assert head["metric"] == "patches_per_sec_per_chip_distill1_w16x2_int8_at_ddim20_quality_256px"
+    assert head["expect_mae"] == 0.33557
+    assert abs(head["verified_mae"] - 0.33557) < 0.02
+
+
+def test_no_checkpoint_at_all_skips_every_rung(tmp_path, monkeypatch):
+    monkeypatch.setattr(headline, "CKPT_DIR", tmp_path)
+    lines = []
+    assert bench.bench_headline("cpu", 2, 32, lines.append) is None
+    assert [o["skipped"] for o in lines] == ["w24x4", "w16x2", "w12", "w1"]
+
+
+def test_bench_data_is_seeded():
+    c1, g1 = bench.data(2, 3, 8, "cpu")
+    c2, g2 = bench.data(2, 3, 8, "cpu")
+    assert torch.equal(c1, c2) and torch.equal(g1, g2)
+    assert float(g1.min()) >= 0.0 and float(g1.max()) < 1.0
+    np.testing.assert_array_equal(
+        c1.numpy(), np.random.default_rng(3).standard_normal((2, 8, 8, 4), np.float32))
+
+
+@pytest.mark.parametrize("spec,expect", [("16x2", 0.33557), ("12", 0.34379)])
+def test_headline_knows_the_fallback_rungs(spec, expect):
+    assert EXPECT_MAE[spec] == expect
+    assert (CKPT_DIR / f"distill_eps_student{spec}.bf16.msgpack").is_file()
+
+
+def test_base96_state_is_the_full_width_unet_of_lines_1_and_2():
+    """The one state lines 1-2, chip_smoke.py and trace_headline share: base
+    96 at full resolution (inc 9→96, 768→768 at the bottom), ≈17M
+    parameters, the same from the same seed."""
+    state = bench.base96_state()
+    assert tuple(state["inc.kernel"].shape) == (3, 3, 9, 96)
+    assert tuple(state["down3.conv2.kernel"].shape) == (3, 3, 768, 768)
+    assert 16.5e6 < sum(v.numel() for v in state.values()) < 17.5e6
+    assert torch.equal(state["inc.kernel"], bench.base96_state()["inc.kernel"])
+    assert (bench.LINE1_BATCH, bench.LINE2_BATCH) == (128, 64)

@@ -13,6 +13,8 @@ from s1s2_torch.ops.conv3x3 import (conv3x3_relu, conv3x3_relu_int8,
                                     conv3x3_relu_int8_plain, conv3x3_relu_plain)
 from s1s2_torch.ops.fused_elementwise import (ddim_coefs, ddim_update_plain,
                                               fused_ddim_update)
+from s1s2_torch.ops.halo import halo_rows_x2, halo_rows_x2_plain
+from s1s2_torch.ops.matmul import matmul, matmul_plain
 
 
 @pytest.fixture
@@ -23,7 +25,8 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,W,Ci,Co", [(2, 64, 64, 129, 24), (3, 17, 9, 5, 40), (1, 8, 8, 192, 192)])
+@pytest.mark.parametrize("B,H,W,Ci,Co", [(2, 64, 64, 129, 24), (3, 17, 9, 5, 40), (1, 8, 8, 192, 192),
+                                         (1, 256, 256, 9, 96), (1, 32, 32, 768, 768)])
 def test_gpu_conv_bf16_kernel_matches_plain(cuda, B, H, W, Ci, Co):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn((B, H, W, Ci), generator=g, device=cuda).to(torch.bfloat16)
@@ -41,7 +44,8 @@ def test_gpu_conv_bf16_kernel_matches_plain(cuda, B, H, W, Ci, Co):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,W,Ci,Co", [(2, 64, 64, 24, 48), (3, 17, 9, 5, 40), (1, 16, 16, 192, 96)])
+@pytest.mark.parametrize("B,H,W,Ci,Co", [(2, 64, 64, 24, 48), (3, 17, 9, 5, 40), (1, 16, 16, 192, 96),
+                                         (1, 256, 256, 96, 192), (1, 64, 64, 768, 384)])
 def test_gpu_conv_int8_kernel_bit_equal(cuda, B, H, W, Ci, Co):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn((B, H, W, Ci), generator=g, device=cuda).to(torch.bfloat16)
@@ -62,3 +66,38 @@ def test_gpu_ddim_kernel_matches_plain(cuda):
     coefs = ddim_coefs(0.25, 0.99)
     for k, p in zip(fused_ddim_update(x, e, *coefs), ddim_update_plain(x, e, *coefs)):
         assert bool(((k - p).abs() <= 1e-6 * p.abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K", [(128, 128, 64), (256, 384, 512), (512, 512, 512)])
+def test_gpu_matmul_int8_bit_equal(cuda, M, N, K):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randint(-128, 128, (M, K), generator=g, device=cuda).to(torch.int8)
+    b = torch.randint(-128, 128, (K, N), generator=g, device=cuda).to(torch.int8)
+    assert torch.equal(matmul(a, b, torch.int32), matmul_plain(a, b, torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K", [(128, 128, 32), (256, 384, 512), (512, 512, 2048)])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+def test_gpu_matmul_bf16_matches_plain(cuda, M, N, K, out):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn((K, N), generator=g, device=cuda).to(torch.bfloat16)
+    got = matmul(a, b, out).float()
+    ref = matmul_plain(a, b, torch.float32)
+    # f32 sums in another order: K·2^-24·Σ|a·b| (two orders: twice that), and
+    # one bf16 ulp of the value when the output is bf16
+    terms = matmul_plain(a.abs(), b.abs(), torch.float32)
+    tol = 2 * K * 2.0 ** -24 * terms
+    if out == torch.bfloat16:
+        tol = tol + ref.abs() * 2.0 ** -8
+    assert bool(((got - ref).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W,C,TH", [(256, 128, 128, 32), (66, 16, 8, 16), (37, 5, 4, 7), (3, 2, 4, 32)])
+def test_gpu_halo_writes_every_row(cuda, H, W, C, TH):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((H, W, C), generator=g, device=cuda)
+    assert torch.equal(halo_rows_x2(x, TH), halo_rows_x2_plain(x))

@@ -71,9 +71,20 @@ SCRIPT = textwrap.dedent("""
     model = load_unet(state, 4, 24, 4, device="cpu")
     x = torch.from_numpy(np.random.default_rng(0).random((2, 32, 32, 8), dtype=np.float32))
     y = model(x, torch.tensor([200, 20], dtype=torch.int32))
+    # the base-96 path: a fresh init, the int8 DPM sampler and the probe ops
+    from s1s2_torch.bench import bench_int8_dpm
+    from s1s2_torch.models.unet import init_params
+    from s1s2_torch.ops.halo import halo_rows_x2
+    from s1s2_torch.ops.matmul import matmul
+    r = bench_int8_dpm(init_params(4, 8, 1, seed=0), batch=1, warmup=0, iters=1, size=16,
+                       base_ch=8, device="cpu")
+    halo_rows_x2(torch.zeros((5, 2, 4)), 2)
+    matmul(torch.zeros((128, 64), dtype=torch.int8), torch.zeros((64, 128), dtype=torch.int8),
+           torch.int32)
     loaded = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
     print(json.dumps({{"modules": mods, "shape": list(y.shape),
-                      "finite": bool(torch.isfinite(y).all()), "loaded": loaded}}))
+                      "finite": bool(torch.isfinite(y).all()), "loaded": loaded,
+                      "dpm_shape": r["shape"], "dpm_finite": r["finite"]}}))
 """)
 
 
@@ -87,7 +98,10 @@ def test_port_runs_with_jax_flax_msgpack_ml_dtypes_and_s1s2_blocked():
     assert out["shape"] == [2, 32, 32, 4] and out["finite"]
     assert out["loaded"] == []
     assert {"s1s2_torch.headline", "s1s2_torch.ops.conv3x3", "s1s2_torch.models.quant",
-            "s1s2_torch.train.checkpoint", "s1s2_torch.sampling.samplers"} <= set(out["modules"])
+            "s1s2_torch.train.checkpoint", "s1s2_torch.sampling.samplers",
+            "s1s2_torch.sampling.dpm_solver", "s1s2_torch.ops.matmul", "s1s2_torch.ops.halo",
+            "s1s2_torch.bench", "s1s2_torch.tools.probe_int8"} <= set(out["modules"])
+    assert out["dpm_shape"] == [1, 16, 16, 4] and out["dpm_finite"]
 
 
 def test_blocker_really_blocks():

@@ -1,0 +1,82 @@
+"""The op-by-op check that ``chip_smoke.py`` puts between the card's int8
+forward and the CPU plain path, run here with both sides on the CPU: the
+recorder sees every op of the forward and leaves the quant module as it
+found it, equal ops pass, and an op that departs from its plain version by
+more than its stated bound fails with its name."""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from s1s2_torch.models import quant
+from s1s2_torch.models.unet import init_params
+
+REPO = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+
+def _forward():
+    """A calibrated base-8 int8 model, one 16² input, its ε̂ and its ops."""
+    state = init_params(4, 8, 1, seed=0)
+    rng = np.random.default_rng(0)
+    cond, gt = (torch.from_numpy(rng.random((2, 16, 16, 4), dtype=np.float32)) for _ in "ab")
+    cal = quant.make_sampler_calib(gt, cond, np.linspace(0.99, 0.01, 1000).astype(np.float32),
+                                   (500,))
+    qp = quant.quantize_unet(state, cal, base_ch=8)
+    x = torch.from_numpy(rng.random((1, 16, 16, 8), dtype=np.float32))
+    t = torch.tensor([200], dtype=torch.int32)
+    eps, calls = chip_smoke.record_ops(quant, qp, x, t)
+    return qp, x, t, eps, calls
+
+
+def test_record_ops_sees_every_op_of_the_int8_forward():
+    before = {name: getattr(quant, name) for name in chip_smoke.QUANT_OPS}
+    qp, x, t, eps, calls = _forward()
+    assert torch.equal(eps, quant.quant_apply(qp, x, t))
+    names = [c[0] for c in calls]
+    assert len(names) == 20 and names.count("conv3x3_relu_int8") == 12
+    assert names.count("max_pool2") == 3 and names.count("ps_conv_transpose_2x2") == 3
+    assert names[0] == "conv3x3_relu" and names[-1] == "conv1x1"
+    assert all(getattr(quant, name) is fn for name, fn in before.items())
+
+
+def test_check_ops_passes_equal_ops():
+    calls = _forward()[-1]
+    rows = chip_smoke.check_ops(torch, F, quant, "cpu", calls)
+    assert [r[0] for r in rows] == [c[0] for c in calls]
+    assert all(r[1] == 0 and r[2] == 0.0 for r in rows)
+
+
+def _nudged(calls, name, ulps):
+    """``calls`` with the largest output of the first ``name`` op moved up by
+    ``ulps`` bf16 ulps."""
+    i = next(i for i, c in enumerate(calls) if c[0] == name)
+    op, args, out = calls[i]
+    flat = out.clone().reshape(-1)
+    j = int(flat.float().abs().argmax())
+    v = flat[j].float()
+    flat[j] = (v + ulps * chip_smoke.bf16_ulp(torch, v)).to(out.dtype)
+    return calls[:i] + [(op, args, flat.reshape(out.shape))] + calls[i + 1:], i
+
+
+@pytest.mark.parametrize("name", ["conv3x3_relu_int8", "max_pool2"])
+def test_check_ops_requires_bit_equality_of_int8_convs_and_pools(name):
+    calls, i = _nudged(_forward()[-1], name, 1)
+    with pytest.raises(AssertionError, match=f"op {i} {name} "):
+        chip_smoke.check_ops(torch, F, quant, "cpu", calls)
+
+
+@pytest.mark.parametrize("name", ["conv3x3_relu", "ps_conv_transpose_2x2", "conv1x1"])
+def test_check_ops_allows_a_bf16_op_one_ulp_and_no_more(name):
+    calls, i = _nudged(_forward()[-1], name, 1)
+    rows = chip_smoke.check_ops(torch, F, quant, "cpu", calls)
+    assert rows[i][1] == 1 and 0.0 < rows[i][3] <= 1.0
+    calls, i = _nudged(calls, name, 64)
+    with pytest.raises(AssertionError, match=f"op {i} {name} "):
+        chip_smoke.check_ops(torch, F, quant, "cpu", calls)
