@@ -7,11 +7,17 @@ Phases, each printing its own seconds:
 
 1. Device: a CUDA card must be present (else exit 1, no result); prints
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
-2. Build: compiles ``s1s2_torch/ops/csrc/*.cu`` with nvcc (ptxas lines).
+2. Build: compiles ``s1s2_torch/ops/csrc/*.cu`` with nvcc and prints each
+   conv kernel's registers and shared memory (ptxas). ``cuobjdump -sass`` of
+   the built library must show tensor-core instructions in the conv
+   kernels (``HMMA`` in every ``conv3x3_bf16_kernel``, ``IMMA`` in
+   ``conv3x3_int8_kernel``) and no ``IDP4A`` or ``FFMA`` there.
 3. Kernels against their plain PyTorch versions at the main path's shapes
    (the 24x4 student's 13 convs, B=8; the DDIM update at (128,256,256,4)):
    conv bf16 within 1 bf16 ulp plus the f32 accumulation-order bound,
-   conv int8 bit-equal, DDIM update within 1e-6 relative.
+   conv int8 bit-equal (and its quantizer on every finite bf16 value at
+   scales that put quotients near k + 1/2), DDIM update within 1e-6
+   relative.
 3b. The probe kernels against their plain versions: the matmul int8
    bit-equal at 512³ and 8192×2048×2048, bf16 → f32 within the f32
    accumulation-order bound and bf16 → bf16 within that plus 1 bf16 ulp;
@@ -22,11 +28,14 @@ Phases, each printing its own seconds:
    checkpoints' own weights), bf16 and int8, at B=1 (256²) or 2, with the
    tolerances of phase 3.
 4. Main path: ``run_headline("24x4")`` — checkpoint through the port's own
-   reader, 32-file evidence set, calibration, int8 quantization, GT-anchored
-   DDIM-1, masked MAE. Asserts the MAE against the committed evidence and
-   the teacher anchor, that every kernel was launched (counts set to 0 just
-   before), and that the card's int8 forward agrees with the CPU plain path
-   on two random patches op by op (``check_ops``).
+   reader, 32-file evidence set, calibration (``PRNGKey(5)``), int8
+   quantization, GT-anchored DDIM-1 on ``normal(PRNGKey(1234))``, masked
+   MAE; then 100 timed batches of ``data(128, 7)`` after one warm-up, as
+   bench.py times them. Asserts the MAE against the committed evidence and
+   the teacher anchor (and prints its difference from 0.32764), that every
+   kernel was launched (counts set to 0 just before), and that the card's
+   int8 forward agrees with the CPU plain path on two random patches op by
+   op (``check_ops``).
 4b. The base-96 path (``s1s2_torch.bench``): one bf16 forward on 2 patches,
    card against the CPU plain path (within 1.5% of mean |ε|), and one int8
    forward checked op by op as in 4; bench line 1 (bf16 DDIM-50 from t=999)
@@ -111,6 +120,38 @@ def conv_shapes(state, body):
         out.append((name, body >> LEVEL[blk], k.shape[2], k.shape[3],
                     "bf16" if name == "inc" else "int8"))
     return out
+
+
+def sass_check(lib):
+    """``cuobjdump -sass`` of the built library: per conv kernel (and the int8
+    mode's quantize kernel), the counts of its tensor-core and CUDA-core
+    multiply instructions. → {mangled name: {op: count}}; raises unless every
+    bf16 conv kernel has HMMA, the int8 one IMMA, and neither IDP4A nor
+    FFMA."""
+    import re
+    from pathlib import Path
+
+    from s1s2_torch.ops import _build
+
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    counts = {}
+    for fn in re.split(r"\n\s*Function : ", out)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if "conv3x3" in name or "quantize_pad" in name:
+            counts[name] = {op: len(re.findall(r"\b%s\b" % op, fn))
+                            for op in ("HMMA", "IMMA", "FFMA", "IDP4A", "LDSM", "LDGSTS")}
+    bf16 = [n for n in counts if "conv3x3_bf16_kernel" in n]
+    int8 = [n for n in counts if "conv3x3_int8_kernel" in n]
+    if not bf16 or not int8:
+        raise AssertionError(f"conv kernels missing from the SASS: {sorted(counts)}")
+    for n in bf16 + int8:
+        c = counts[n]
+        mma = c["HMMA"] if n in bf16 else c["IMMA"]
+        if mma == 0 or c["IDP4A"] or c["FFMA"]:
+            raise AssertionError(f"{n} is not on the tensor cores: {c}")
+    return counts
 
 
 def bound_ms(nbytes, ops, kind):
@@ -299,6 +340,14 @@ def main():
         info = _build.kernels().info
         print(f"built {info.path.name} compiled={info.compiled} in {info.seconds:.2f} s",
               flush=True)
+        prev = ""
+        for line in info.ptxas:  # each kernel's "Compiling entry" line, then its usage
+            if "conv3x3" in line or "quantize_pad" in line or (
+                    "Used" in line and any(k in prev for k in ("conv3x3", "quantize_pad"))):
+                print(f"ptxas: {line}", flush=True)
+            prev = line
+        for name, c in sass_check(info.path).items():
+            print(f"sass {name[:80]}: {c}", flush=True)
 
     def student(spec):
         """A distilled student's checkpoint on the card."""
@@ -387,6 +436,23 @@ def main():
             for m in ("bf16", "int8") if mode == "int8" else ("bf16",):
                 key, e = check_conv(conv_inputs, name, CHECK_BATCH, H, Cin, Cout, m)
                 err[key] = max(err[key], e)
+        # the quantizer on every finite bf16 value (identity centre tap, so
+        # y = q), at scales that put quotients within an ulp of k + 1/2
+        xq = (torch.arange(1 << 16, dtype=torch.int32) << 16).view(torch.float32)
+        xq = xq[torch.isfinite(xq)].to(torch.bfloat16).reshape(1, 51, 40, 32).to(dev)
+        wq = torch.zeros((3, 3, 32, 32), dtype=torch.int8, device=dev)
+        wq[1, 1] = torch.eye(32, dtype=torch.int8, device=dev)
+        ones, zeros = torch.ones(32, device=dev), torch.zeros(32, device=dev)
+        mags = xq.flatten().float().abs()
+        mags = mags[(mags > 1e-3) & (mags < 1e3)]
+        pick = torch.randint(len(mags), (40,), generator=gen, device=dev)
+        ks = torch.randint(127, (40,), generator=gen, device=dev).float() + 0.5
+        for sx in (mags[pick] / ks).tolist():
+            same = torch.equal(conv3x3_relu_int8(xq, wq, sx, ones, zeros, False),
+                               conv3x3_relu_int8_plain(xq, wq, sx, ones, zeros, False))
+            require(same, f"the int8 quantizer disagrees with the IEEE division at sx={sx!r}")
+        print("check int8 quantizer: all 65280 finite bf16 values at 40 scales near k + 1/2, "
+              "bit-equal", flush=True)
         ab = Schedule.cosine(1000).alpha_bar_np().astype(np.float64)
         s1m, sabg, sabn, s1mn = ddim_coefs(ab[200], ab[0])
         xd = torch.randn((BATCH, SIZE, SIZE, 4), generator=gen, device=dev)
@@ -455,8 +521,9 @@ def main():
                                                         size=SIZE))
         launches = path_launches["headline 24x4"]
         ev = r["evidence_launches"]
-        print(f"evidence MAE {r['mae']:.5f} (committed {EVIDENCE_MAE}, teacher anchor "
-              f"{TEACHER_ANCHOR}) quality_checked={r['quality_checked']}", flush=True)
+        print(f"evidence MAE {r['mae']:.5f} (committed {EVIDENCE_MAE}, difference "
+              f"{r['mae'] - EVIDENCE_MAE:+.5f}; teacher anchor {TEACHER_ANCHOR}) "
+              f"quality_checked={r['quality_checked']}", flush=True)
         print(f"int8 ddim-1 B={r['batch']}: {r['patches_per_s']:.1f} patches/s "
               f"({r['ms_per_batch']:.3f} ms/batch) on {card}", flush=True)
         print(f"launches in the evidence ddim-1 {ev}; "

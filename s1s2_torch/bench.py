@@ -8,8 +8,8 @@ name under ``device`` (bench.py's ``vs_baseline`` is left out: its target was
 set for another chip):
 
 1. ``patches_per_sec_per_chip_50step_ddim_256px_bf16``: the full-width
-   UNetSmall (base 96, no stem, ≈17M parameters, freshly initialised from a
-   seed) in bf16, GT-anchored DDIM, 50 steps from t=999, B=128; two timed
+   UNetSmall (base 96, no stem, ≈17M parameters, flax's init from
+   ``PRNGKey(0)``, bit for bit) in bf16, GT-anchored DDIM, 50 steps from t=999, B=128; two timed
    iterations after one warm-up, with the per-iteration spread.
 2. ``patches_per_sec_per_chip_dpm2m5_int8_at_ddim20_quality_256px``: the same
    model quantized to int8 (calibrated at t ∈ (999, 500, 200, 20) on 8
@@ -19,10 +19,12 @@ set for another chip):
 3. the headline: the first of the 24x4, 16x2 and 12 distilled students whose
    checkpoint is present, self-verified on the 32-file evidence set and
    timed by ``headline.run_headline``; a missing checkpoint prints a
-   ``{"skipped": ...}`` line first.
+   ``{"skipped": ...}`` line first, and the base-96 student's line, last,
+   is named ``patches_per_sec_per_chip_distill1_int8_at_ddim20_quality_256px``.
 
-Every timed call draws fresh noise on the card and is timed with CUDA
-events. Called with ``device="cpu"`` (as the tests call the line functions,
+Inputs are bench.py's ``data(B, seed)`` with jax's own bits (``core/random.py``):
+seed 1 for line 1, 3 for line 2, 7 for the headline. Every timed call draws
+fresh noise on the card and is timed with CUDA events. Called with ``device="cpu"`` (as the tests call the line functions,
 at a small size) the lines run the same calls but carry ``"value": null``:
 no device time is measured there.
 """
@@ -39,7 +41,7 @@ import torch
 from s1s2_torch.core.parametrize import Parameterization, q_sample
 from s1s2_torch.core.schedule import Schedule
 from s1s2_torch import headline
-from s1s2_torch.headline import EXPECT_MAE, TEACHER_ANCHOR, run_headline
+from s1s2_torch.headline import CC, CT, EXPECT_MAE, TEACHER_ANCHOR, data, run_headline
 from s1s2_torch.models.quant import make_quant_denoise_fn, make_sampler_calib, quantize_unet
 from s1s2_torch.models.unet import init_params, load_unet
 from s1s2_torch.sampling.dpm_solver import dpm_solver_2m
@@ -49,11 +51,12 @@ from s1s2_torch.sampling.samplers import ddim_anchored, make_denoise_fn
 LINE1 = "patches_per_sec_per_chip_50step_ddim_256px_bf16"
 LINE2 = "patches_per_sec_per_chip_dpm2m5_int8_at_ddim20_quality_256px"
 HEADLINE = "patches_per_sec_per_chip_distill1_w{}_int8_at_ddim20_quality_256px"
+# the base-96 student's line, bench.py's last fallback, has no width in its name
+FALLBACK_METRIC = "patches_per_sec_per_chip_distill1_int8_at_ddim20_quality_256px"
 # bench.py's preference order (spec, batch, params); the first present one
 # is the headline, and "1", the base-96 student, comes last
 HEADLINE_PREF = [("24x4", 128, "1.11M"), ("16x2", 128, "0.48M"), ("12", 128, "0.27M")]
 FALLBACK = ("1", 64, "17M")
-CC = CT = 4  # cond and target channels
 T_START = 999
 CALIB_TVALS = (999, 500, 200, 20)
 DPM_GRID = (200, 5, 1000)  # round_unique_grid(t_hi, steps, T)
@@ -77,14 +80,6 @@ def _device(device) -> torch.device:
 
 def device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-
-
-def data(B: int, seed: int, size: int, device) -> tuple:
-    """bench.py's random batch: cond ~ N(0, 1) from ``seed``, gt ~ U[0, 1)
-    from ``seed + 1``, NHWC f32 on ``device``."""
-    cond = np.random.default_rng(seed).standard_normal((B, size, size, CC), np.float32)
-    gt = np.random.default_rng(seed + 1).random((B, size, size, CT), np.float32)
-    return torch.from_numpy(cond).to(device), torch.from_numpy(gt).to(device)
 
 
 def timed(run: Callable[[], torch.Tensor], device: torch.device, warmup: int,
@@ -196,7 +191,8 @@ def bench_headline(device="cuda", n_files: int = 32, size: int = 256,
             emit({"skipped": f"w{spec}", "reason": f"checkpoint absent: {ckpt}"})
             continue
         r = run_headline(spec, batch=batch, device=device, n_files=n_files, size=size)
-        return {"metric": HEADLINE.format(spec), "value": r["patches_per_s"],
+        metric = FALLBACK_METRIC if spec == FALLBACK[0] else HEADLINE.format(spec)
+        return {"metric": metric, "value": r["patches_per_s"],
                 "unit": "patches/s", "ms_per_batch": r.get("ms_per_batch"),
                 "config": f"width-distilled {spec} 1-step student, int8, B={batch} "
                           f"({n_params} params)",

@@ -9,17 +9,29 @@ Port of the headline rung of the JAX package's benchmark (``bench.py``,
 2. regenerates the deterministic synthetic evidence set (seed 0, 32 files
    of 256², written to a temporary directory and read back);
 3. calibrates on the first 8 files at t ∈ (200, 100, 20) through the bf16
-   network and quantizes the double-conv blocks to int8;
-4. runs one GT-anchored DDIM step from t=200 with noise from
-   ``np.random.default_rng(1234)``;
+   network (noise from ``PRNGKey(5)``, split once per t) and quantizes the
+   double-conv blocks to int8;
+4. runs one GT-anchored DDIM step from t=200 with the evidence noise
+   ``normal(PRNGKey(1234), gt.shape)``;
 5. scores it with ``masked_mae`` and checks it against the committed
    evidence MAE and the teacher anchor;
 6. on a CUDA device, times patches/s of the same int8 DDIM-1 at ``batch``
-   with CUDA events, drawing new noise on the card every iteration.
+   as bench.py times it: on ``data(batch, 7)`` (cond ~ N(0, 1) from
+   ``PRNGKey(7)``, gt ~ U[0, 1) from ``PRNGKey(8)``, made once on the host
+   and moved to the card), one warm-up call, then 100 calls between CUDA
+   events, each drawing its own DDIM noise on the card inside the timed
+   region.
+
+Every host draw is the JAX package's own (``core/random.py``). The timed
+calls' noise comes from a CUDA ``torch.Generator``, not from threefry: the
+reference draws it on the device inside ``jit``, and a host draw would add
+a host-to-device copy per call that the reference does not pay. That noise
+feeds no MAE.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import tempfile
 import time
@@ -29,6 +41,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from s1s2_torch.core import random
 from s1s2_torch.core.schedule import Schedule
 from s1s2_torch.data.dataset import NpzPatchDataset
 from s1s2_torch.data.synthetic import make_synthetic_patches
@@ -46,10 +59,12 @@ CKPT_DIR = Path(__file__).resolve().parents[1] / "examples" / "checkpoints"
 # "1", the base-96 student, as bench.py states it)
 EXPECT_MAE = {"24x4": 0.32764, "16x2": 0.33557, "12": 0.34379, "1": 0.36465}
 TEACHER_ANCHOR = 0.44074  # teacher ddim-20 evidence MAE
-CALIB_TVALS, CALIB_SEED, CALIB_N = (200, 100, 20), 5, 8
-NOISE_SEED = 1234
+CALIB_TVALS, CALIB_N = (200, 100, 20), 8  # calibration noise: PRNGKey(5), split per t
+NOISE_SEED = 1234  # the evidence noise: normal(PRNGKey(1234), gt.shape)
+DATA_SEED = 7  # the timed inputs: data(batch, 7)
 T_START, STEPS = 200, 1
-TIMING_ITERS = 20
+WARMUP, TIMING_ITERS = 1, 100
+CC = CT = 4  # cond and target channels
 KERNELS = (conv3x3_relu, conv3x3_relu_int8, fused_ddim_update)
 
 
@@ -69,6 +84,22 @@ def evidence_set(n_files: int = 32, size: int = 256,
     mask = np.stack([np.ones(it["target"].shape[:2], np.float32)
                      if it["mask"] is None else it["mask"] for it in items])
     return cond, gt, mask
+
+
+@functools.lru_cache(maxsize=4)
+def _data_host(B: int, seed: int, size: int) -> Tuple[np.ndarray, np.ndarray]:
+    cond = random.normal(random.PRNGKey(seed), (B, size, size, CC))
+    gt = random.uniform(random.PRNGKey(seed + 1), (B, size, size, CT))
+    cond.flags.writeable = gt.flags.writeable = False
+    return cond, gt
+
+
+def data(B: int, seed: int, size: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bench.py's random batch ``data(B, seed)``: cond = normal(PRNGKey(seed)),
+    gt = uniform(PRNGKey(seed + 1)), (B, size, size, 4) f32 each, drawn on the
+    host with jax's bits (kept for reuse) and moved to ``device``."""
+    cond, gt = _data_host(B, seed, size)
+    return torch.tensor(cond, device=device), torch.tensor(gt, device=device)
 
 
 def _sync(device: torch.device) -> None:
@@ -100,8 +131,7 @@ def prepare(spec: str = "24x4", device="cuda", n_files: int = 32,
 
     t0 = time.perf_counter()
     schedule = Schedule.cosine(1000)
-    calib = make_sampler_calib(gt, cond, schedule.alpha_bar_np(), CALIB_TVALS,
-                               seed=CALIB_SEED, n=CALIB_N)
+    calib = make_sampler_calib(gt, cond, schedule.alpha_bar_np(), CALIB_TVALS, n=CALIB_N)
     qp = quantize_unet(params, calib, out_ch=gt.shape[-1], base_ch=base_ch,
                        stem_s2d=s2d)
     _sync(device)
@@ -109,12 +139,6 @@ def prepare(spec: str = "24x4", device="cuda", n_files: int = 32,
     return dict(device=device, qp=qp, cond=cond, gt=gt, mask=mask,
                 schedule=schedule, seconds=secs,
                 n_params=int(sum(v.numel() for v in params.values())))
-
-
-def timing_batch(p: Dict, batch: int):
-    """The evidence set tiled to ``batch`` patches: (cond, gt) on the device."""
-    idx = torch.arange(batch, device=p["device"]) % p["gt"].shape[0]
-    return p["cond"][idx].contiguous(), p["gt"][idx].contiguous()
 
 
 def run_headline(spec: str = "24x4", batch: int = 128, device="cuda",
@@ -127,8 +151,7 @@ def run_headline(spec: str = "24x4", batch: int = 128, device="cuda",
     schedule, secs = p["schedule"], p["seconds"]
 
     t0 = time.perf_counter()
-    noise = torch.from_numpy(np.random.default_rng(NOISE_SEED).standard_normal(
-        tuple(gt.shape)).astype(np.float32)).to(device)
+    noise = torch.from_numpy(random.normal(random.PRNGKey(NOISE_SEED), tuple(gt.shape))).to(device)
     before = launch_counts()
     pred = ddim_anchored(make_quant_denoise_fn(qp, cond), gt, schedule, T_START,
                          STEPS, noise=noise)
@@ -156,11 +179,11 @@ def run_headline(spec: str = "24x4", batch: int = 128, device="cuda",
     }
     if device.type == "cuda":
         t0 = time.perf_counter()
-        cond_b, gt_b = timing_batch(p, batch)
+        cond_b, gt_b = data(batch, DATA_SEED, size, device)
         fn = make_quant_denoise_fn(qp, cond_b)
         gen = torch.Generator(device=device)
         gen.manual_seed(NOISE_SEED)
-        for _ in range(3):  # warm-up
+        for _ in range(WARMUP):
             ddim_anchored(fn, gt_b, schedule, T_START, STEPS, generator=gen)
         torch.cuda.synchronize(device)
         start = torch.cuda.Event(enable_timing=True)

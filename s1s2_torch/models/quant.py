@@ -24,9 +24,10 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from s1s2_torch.core import random
 from s1s2_torch.core.parametrize import q_sample
 from s1s2_torch.models.unet import BLOCKS, UPS, conv1x1, input_map, max_pool2
-from s1s2_torch.ops.conv3x3 import conv3x3_relu, conv3x3_relu_int8
+from s1s2_torch.ops.conv3x3 import conv3x3_relu, conv3x3_relu_int8, packed_int8_weight
 from s1s2_torch.ops.pixel_shuffle import depth_to_space, ps_conv_transpose_2x2
 
 
@@ -66,9 +67,11 @@ class QuantParams:
         self.b32 = {k[:-len(".bias")]: v.to(torch.bfloat16).float().contiguous()
                     for k, v in self.params.items() if k.endswith(".bias")}
         self.deq = {}
-        for name, (_, sw) in self.w8.items():
+        for name, (q, sw) in self.w8.items():
             sx = torch.tensor(self.act_scale[name], dtype=torch.float32, device=sw.device)
             self.deq[name] = (sx * sw).contiguous()
+            if q.device.type == "cuda":
+                packed_int8_weight(q)  # the card kernel's layout, made once here
 
     def to(self, device) -> "QuantParams":
         """A copy with every tensor on ``device`` (same scales)."""
@@ -152,23 +155,26 @@ def calibrate(params, batches: Iterable, out_ch: int = 4, base_ch: int = 96,
 
 
 def make_sampler_calib(gt: torch.Tensor, cond: torch.Tensor, alpha_bar: np.ndarray,
-                       tvals, *, seed: int = 5, n: int = 8,
+                       tvals, *, key=None, n: int = 8,
                        noises: Optional[List[torch.Tensor]] = None):
     """Sampler-representative calibration batches: ``x_t = q_sample(gt)`` at
     each timestep of ``tvals``, concatenated with cond.
 
-    The forward noise for each tval is drawn in turn from
-    ``np.random.default_rng(seed)``, or taken from ``noises`` (one (n,H,W,C)
-    tensor per tval). The coefficients are f32 square roots of the f32
-    ``alpha_bar`` entries, as in the JAX package.
+    The forward noise for each tval is ``normal(sub, gt[:n].shape)`` after
+    ``key, sub = split(key)``, the key a jax-layout (2,) uint32 array
+    (default ``PRNGKey(5)``), drawn on the host with the reference's own
+    threefry bits (``core/random.py``); or it is taken from ``noises`` (one
+    (n,H,W,C) tensor per tval). The coefficients are f32 square roots of the
+    f32 ``alpha_bar`` entries, as in the JAX package.
     """
     gt, cond = gt[:n], cond[:n]
-    rng = np.random.default_rng(seed)
+    if key is None:
+        key = random.PRNGKey(5)
     calib = []
     for i, tval in enumerate(tvals):
         if noises is None:
-            eps = torch.from_numpy(
-                rng.standard_normal(tuple(gt.shape)).astype(np.float32)).to(gt.device)
+            key, sub = random.split(key)
+            eps = torch.from_numpy(random.normal(sub, tuple(gt.shape))).to(gt.device)
         else:
             eps = noises[i][:n].to(gt.device)
         ab = np.float32(alpha_bar[tval])

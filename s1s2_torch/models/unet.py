@@ -12,7 +12,7 @@ parameters are f32, as in the JAX model. The JAX model's two up paths
 (``up_impl="convt"``, a flax ConvTranspose, and ``"ps"``) share one param
 tree and compute the same function; the port runs the ``ps`` form, so a
 tree from either loads as it is. :func:`init_params` gives a freshly
-initialised tree, drawn as flax's initialisers draw it.
+initialised tree with flax's own bits.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from s1s2_torch.core import random
 from s1s2_torch.ops.conv3x3 import conv3x3_relu
 from s1s2_torch.ops.pixel_shuffle import (depth_to_space, ps_conv_transpose_2x2,
                                           space_to_depth)
@@ -150,35 +151,34 @@ def load_unet(state: Dict[str, torch.Tensor], out_ch: int = 4, base_ch: int = 96
     return model.to(device)
 
 
-# flax's lecun_normal: a normal truncated to ±2 standard deviations, scaled
-# so that the variance is 1/fan_in; 0.8796... is the std of N(0,1) on [-2, 2]
+# the standard deviation of N(0, 1) truncated to [-2, 2] (flax's variance_scaling)
 _TRUNC_STD = 0.87962566103423978
-
-
-def _truncated_normal(rng: np.random.Generator, shape, std: float) -> np.ndarray:
-    z = rng.standard_normal(shape)
-    bad = np.abs(z) > 2.0
-    while bad.any():
-        z[bad] = rng.standard_normal(int(bad.sum()))
-        bad = np.abs(z) > 2.0
-    return (z * (std / _TRUNC_STD)).astype(np.float32)
 
 
 def init_params(out_ch: int = 4, base_ch: int = 96, stem_s2d: int = 1, seed: int = 0,
                 in_ch: int = 8) -> Dict[str, torch.Tensor]:
-    """A freshly initialised flat state (f32 CPU tensors), the counterpart of
-    the JAX model's ``model.init``: every kernel (HWIO) LeCun-normal with
-    variance 1/fan_in (fan_in = kH·kW·Ci), truncated at ±2σ; biases zero.
-    The draws come from ``np.random.default_rng(seed)`` in the sorted order
-    of the names, so they are not flax's bits but the same distribution."""
-    rng = np.random.default_rng(seed)
-    shapes = UNetSmall(out_ch, base_ch, stem_s2d, in_ch).state_dict()
+    """A freshly initialised flat state (f32 CPU tensors): the bits of the JAX
+    model's ``UNetSmall(...).init(PRNGKey(seed), ...)["params"]``.
+
+    flax draws each parameter from its own key, ``PRNGKey(seed)`` folded with
+    the SHA-1 of the module path and the module's count of draws so far
+    (``flax/core/scope.py``: ``LazyRng``, ``_fold_in_static``); the path is
+    the state name without its leaf (``"down1.conv1.kernel"`` → ``("down1",
+    "conv1")``), the kernel is the module's first draw and the bias its
+    second. Kernels (HWIO) are LeCun-normal: a normal truncated to ±2,
+    times √(1/fan_in)/0.8796… with fan_in = kH·kW·Ci, in float32; biases
+    are zero."""
+    root = random.PRNGKey(seed)
     state = {}
-    for name in sorted(shapes):
-        shape = tuple(shapes[name].shape)
-        if name.endswith(".kernel"):
-            arr = _truncated_normal(rng, shape, float(np.sqrt(1.0 / np.prod(shape[:-1]))))
+    for name, p in UNetSmall(out_ch, base_ch, stem_s2d, in_ch).state_dict().items():
+        *path, leaf = name.split(".")
+        shape = tuple(p.shape)
+        if leaf == "kernel":
+            key = random.fold_in_static(root, (*path, 1))
+            std = np.sqrt(np.float32(1.0 / np.prod(shape[:-1]))) / np.float32(_TRUNC_STD)
+            arr = random.truncated_normal(key, -2.0, 2.0, shape) * std
         else:
             arr = np.zeros(shape, np.float32)
         state[name] = torch.from_numpy(arr)
     return state
+

@@ -13,9 +13,15 @@ hand-written CUDA kernel (``csrc/conv3x3.cu``):
   int32; ``acc·deq[co] + b[co]``, optional ReLU, bf16 out, where
   ``deq = f32(sx)·sw`` is computed by the caller.
 
+On the card the int8 mode quantizes the activations in a first kernel into
+an int8 copy with the channels zero-padded to a multiple of 32 (scratch
+allocated here), and reads its weights as ``(9, Cout_pad, Cin_pad)``
+(:func:`packed_int8_weight`), made once per weight tensor and kept on it.
+
 Each wrapper runs its plain PyTorch version when the tensor lies on the CPU
 and launches the kernel when it lies on a CUDA device; it never falls back
-from one to the other. ``launches`` counts the kernel launches.
+from one to the other. ``launches`` counts the wrapper calls that launched
+the kernel.
 """
 
 from __future__ import annotations
@@ -24,6 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from s1s2_torch.ops import _build
+
+# the kernel's tiles (csrc/conv3x3.cu): 64 output channels a block, 32 int8
+# input channels a chunk
+N_TILE, K_CHUNK_I8 = 64, 32
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -85,6 +95,30 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> Non
         raise ValueError(f"{name}: expected device {device}, got {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+    if name in ("x", "w") and t.data_ptr() % 16:
+        raise ValueError(f"{name}: must start on a 16-byte boundary (the kernel "
+                         f"loads 16 bytes at a time)")
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def packed_int8_weight(w8: torch.Tensor) -> torch.Tensor:
+    """The int8 mode's weight layout: HWIO (3,3,Cin,Cout) int8 →
+    (9, Cout rounded up to 64, Cin rounded up to 32), zero-padded, so the
+    kernel reads 32 consecutive input channels of one output channel with
+    one 16-byte load per half. Made once per weight tensor (and again only
+    if the tensor was changed in place) and kept on it."""
+    cached = getattr(w8, "_s1s2_packed", None)
+    if cached is not None and cached[0] == w8._version:
+        return cached[1]
+    _, _, Cin, Cout = w8.shape
+    p = torch.zeros((9, _round_up(Cout, N_TILE), _round_up(Cin, K_CHUNK_I8)),
+                    dtype=torch.int8, device=w8.device)
+    p[:, :Cout, :Cin] = w8.reshape(9, Cin, Cout).transpose(1, 2)
+    w8._s1s2_packed = (w8._version, p)
+    return p
 
 
 def _conv_shapes(x: torch.Tensor, w: torch.Tensor):
@@ -133,10 +167,12 @@ def conv3x3_relu_int8(x: torch.Tensor, w8: torch.Tensor, sx: float,
     _check(deq, "deq", torch.float32, (Cout,), x.device)
     _check(b, "b", torch.float32, (Cout,), x.device)
     k = _build.kernels()
+    wp = packed_int8_weight(w8)
+    x8 = torch.empty((B, H, W, _round_up(Cin, K_CHUNK_I8)), dtype=torch.int8, device=x.device)
     y = torch.empty((B, H, W, Cout), dtype=torch.bfloat16, device=x.device)
     rc = k.s1s2k_conv3x3_int8(
-        x.data_ptr(), w8.data_ptr(), deq.data_ptr(), b.data_ptr(), y.data_ptr(),
-        B, H, W, Cin, Cout, float(sx), int(apply_relu), x.device.index,
+        x.data_ptr(), x8.data_ptr(), wp.data_ptr(), deq.data_ptr(), b.data_ptr(),
+        y.data_ptr(), B, H, W, Cin, Cout, float(sx), int(apply_relu), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "conv3x3_relu_int8")
     conv3x3_relu_int8.launches += 1

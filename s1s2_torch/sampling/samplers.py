@@ -14,7 +14,10 @@ their JAX versions are plain XLA.
 
 JAX keys become ``torch.Generator``s. Where a JAX sampler draws noise from a
 key, the port draws it with ``generator`` on the device of its inputs, or
-takes it from ``noise`` (so a test can replay JAX's draws).
+takes it from ``noise`` (so a test can replay JAX's draws);
+``ddim_grid_sample`` also takes a jax-layout key, or a (B, 2) batch of
+per-file keys, and then draws the reference's own bits on the host
+(``core/random.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from s1s2_torch.core import random
 from s1s2_torch.core.parametrize import Parameterization, pred_to_x0_eps, q_sample
 from s1s2_torch.core.schedule import Schedule
 from s1s2_torch.ops.fused_elementwise import fused_ddim_update
@@ -150,7 +154,8 @@ def ddim_grid_sample(denoise_fn: DenoiseFn, x_init: torch.Tensor, schedule: Sche
                      eta: float = 0.0, clip: Tuple[float, float] = (0.0, 1.0),
                      return_traj: bool = False,
                      noise: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     key: Optional[np.ndarray] = None):
     """Descending sweep over an ascending unique grid; at the lowest grid
     point x_t ← x0̂. Returns that final array, clamped, or with
     ``return_traj=True`` the pair ``(x0, (t_cur, traj))`` of per-step int32
@@ -158,8 +163,12 @@ def ddim_grid_sample(denoise_fn: DenoiseFn, x_init: torch.Tensor, schedule: Sche
 
     η>0 adds the stochastic DDIM term σ·z with
     σ = η·√((1−ᾱ_prev)/(1−ᾱ_cur+1e-8)·max(0, 1−ᾱ_cur/ᾱ_prev)); the draws z
-    come from ``generator`` on x_init's device, one (B,H,W,C) draw per step,
-    or from ``noise`` of shape ``(len(grid),) + x_init.shape`` (replay).
+    come from ``noise`` of shape ``(len(grid),) + x_init.shape`` (replay);
+    else from ``key`` as the JAX sampler draws them: a (2,) key is split
+    into one key per step, each drawing the whole (B,H,W,C) batch, and a
+    (B, 2) batch of per-file keys is split per file, so file b's step-i
+    draw is ``normal(split(key[b], n)[i], (H,W,C))`` whatever the batch
+    holds; else from ``generator`` on x_init's device.
     """
     grid = np.asarray(grid, np.int64)
     n = len(grid)
@@ -176,6 +185,13 @@ def ddim_grid_sample(denoise_fn: DenoiseFn, x_init: torch.Tensor, schedule: Sche
     if noise is not None and tuple(noise.shape) != (n,) + tuple(x_init.shape):
         raise ValueError(f"replay noise must be (len(grid),)+x_init.shape = "
                          f"{(n,) + tuple(x_init.shape)}, got {tuple(noise.shape)}")
+    step_keys = None
+    if noise is None and key is not None and eta > 0:
+        key = random.as_key(key)
+        if key.ndim == 2:  # (B, n, 2) → (n, B, 2): step-major, one stream per file
+            step_keys = np.swapaxes(random.split(key, n), 0, 1)
+        else:
+            step_keys = random.split(key, n)
     param = Parameterization(param)
     B = x_init.shape[0]
     x_t = x_init.float()
@@ -190,8 +206,13 @@ def ddim_grid_sample(denoise_fn: DenoiseFn, x_init: torch.Tensor, schedule: Sche
             break
         x_next = float(sab_p[i]) * x0_pred + float(dirt[i]) * eps_pred
         if eta > 0:
-            z = (noise[i].to(x_t.device, torch.float32) if noise is not None
-                 else _randn(x_t.shape, generator, x_t.device))
+            if noise is not None:
+                z = noise[i].to(x_t.device, torch.float32)
+            elif step_keys is not None:
+                shape = tuple(x_t.shape[1:]) if step_keys.ndim == 3 else tuple(x_t.shape)
+                z = torch.from_numpy(random.normal(step_keys[i], shape)).to(x_t.device)
+            else:
+                z = _randn(x_t.shape, generator, x_t.device)
             x_next = x_next + float(sig[i]) * z
         x_t = x_next
     x_t = torch.clamp(x_t, clip[0], clip[1])

@@ -5,15 +5,16 @@
 
 ``headline`` (the default) prepares the main path as
 ``headline.run_headline`` does (24x4 student, evidence set, calibration,
-int8), then runs 10 DDIM-1 batches of 128. ``line1`` and ``line2`` are the
-port's bench lines (``s1s2_torch.bench``) on the full-width base-96 UNet:
-bf16 GT-anchored DDIM at B=128 (``--steps`` steps from t=999, default 2:
-every step is one forward and one update, as in the bench's 50) and int8
-DPM-Solver++(2M)-5 at B=64, one untimed call, then 2 profiled calls. Under
-``torch.profiler`` it prints, per call: the wall time on CUDA events, the
-device time of each kernel (the hand-written ones and PyTorch's own), and
-the device's idle share (1 − summed kernel time / wall time). With
-``--trace`` it also writes the Chrome trace. It needs a CUDA card.
+int8), then runs 10 DDIM-1 batches of its timed inputs ``data(128, 7)``.
+``line1`` and ``line2`` are the port's bench lines (``s1s2_torch.bench``)
+on the full-width base-96 UNet: bf16 GT-anchored DDIM at B=128 (``--steps``
+steps from t=999, default 2: every step is one forward and one update, as
+in the bench's 50) and int8 DPM-Solver++(2M)-5 at B=64, one untimed call,
+then 2 profiled calls. Under ``torch.profiler`` it prints, per call: the
+wall time on CUDA events, the device time of each kernel (the hand-written
+ones and PyTorch's own), and the device's idle share (1 − summed kernel
+time / wall time). With ``--trace`` it also writes the Chrome trace. It
+needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -25,12 +26,12 @@ from typing import Callable, Dict, List
 import torch
 
 from s1s2_torch import bench
-from s1s2_torch.headline import STEPS, T_START, prepare, timing_batch
+from s1s2_torch.headline import DATA_SEED, STEPS, T_START, data, prepare
 from s1s2_torch.models.quant import make_quant_denoise_fn
 from s1s2_torch.sampling.samplers import ddim_anchored
 
-OURS = ("conv3x3_int8_kernel", "conv3x3_bf16_kernel", "ddim_update_kernel",
-        "matmul_kernel", "halo_rows_x2_kernel")
+OURS = ("conv3x3_int8_kernel", "quantize_pad_kernel", "conv3x3_bf16_kernel",
+        "ddim_update_kernel", "matmul_kernel", "halo_rows_x2_kernel")
 
 
 def _device_us(evt) -> float:
@@ -81,7 +82,7 @@ def breakdown(trace: str = "") -> Dict:
     if not torch.cuda.is_available():
         raise SystemExit("trace_headline needs a CUDA card")
     p = prepare("24x4", "cuda")
-    cond_b, gt_b = timing_batch(p, BATCH)
+    cond_b, gt_b = data(BATCH, DATA_SEED, p["gt"].shape[1], p["device"])
     fn = make_quant_denoise_fn(p["qp"], cond_b)
     gen = torch.Generator(device=p["device"])
     gen.manual_seed(0)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from s1s2_torch import bench, headline
+from s1s2_torch.core import random
 from s1s2_torch.headline import CKPT_DIR, EXPECT_MAE
 from s1s2_torch.models.unet import init_params
 from s1s2_torch.ops.conv3x3 import conv3x3_relu, conv3x3_relu_int8
@@ -72,8 +73,8 @@ def test_bench_data_is_seeded():
     c2, g2 = bench.data(2, 3, 8, "cpu")
     assert torch.equal(c1, c2) and torch.equal(g1, g2)
     assert float(g1.min()) >= 0.0 and float(g1.max()) < 1.0
-    np.testing.assert_array_equal(
-        c1.numpy(), np.random.default_rng(3).standard_normal((2, 8, 8, 4), np.float32))
+    np.testing.assert_array_equal(c1.numpy(), random.normal(random.PRNGKey(3), (2, 8, 8, 4)))
+    np.testing.assert_array_equal(g1.numpy(), random.uniform(random.PRNGKey(4), (2, 8, 8, 4)))
 
 
 @pytest.mark.parametrize("spec,expect", [("16x2", 0.33557), ("12", 0.34379)])

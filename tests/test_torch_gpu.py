@@ -26,7 +26,8 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,W,Ci,Co", [(2, 64, 64, 129, 24), (3, 17, 9, 5, 40), (1, 8, 8, 192, 192),
-                                         (1, 256, 256, 9, 96), (1, 32, 32, 768, 768)])
+                                         (1, 256, 256, 9, 96), (1, 32, 32, 768, 768),
+                                         (2, 32, 32, 9, 12), (1, 24, 40, 24, 12)])
 def test_gpu_conv_bf16_kernel_matches_plain(cuda, B, H, W, Ci, Co):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn((B, H, W, Ci), generator=g, device=cuda).to(torch.bfloat16)
@@ -45,7 +46,8 @@ def test_gpu_conv_bf16_kernel_matches_plain(cuda, B, H, W, Ci, Co):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,W,Ci,Co", [(2, 64, 64, 24, 48), (3, 17, 9, 5, 40), (1, 16, 16, 192, 96),
-                                         (1, 256, 256, 96, 192), (1, 64, 64, 768, 384)])
+                                         (1, 256, 256, 96, 192), (1, 64, 64, 768, 384),
+                                         (2, 32, 32, 12, 12), (1, 8, 8, 200, 70)])
 def test_gpu_conv_int8_kernel_bit_equal(cuda, B, H, W, Ci, Co):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn((B, H, W, Ci), generator=g, device=cuda).to(torch.bfloat16)
@@ -56,6 +58,26 @@ def test_gpu_conv_int8_kernel_bit_equal(cuda, B, H, W, Ci, Co):
     for relu in (True, False):
         assert torch.equal(conv3x3_relu_int8(x, w8, sx, deq, b, relu),
                            conv3x3_relu_int8_plain(x, w8, sx, deq, b, relu))
+
+
+@pytest.mark.gpu
+def test_gpu_int8_quantizer_is_the_ieee_division(cuda):
+    """Every finite bf16 value through the int8 conv with an identity centre
+    tap (y = q exactly), at scales that put quotients within an ulp of a
+    half-integer: bit-equal to the plain version's true division."""
+    x = (torch.arange(1 << 16, dtype=torch.int32) << 16).view(torch.float32)
+    x = x[torch.isfinite(x)].to(torch.bfloat16).reshape(1, 51, 40, 32).to(cuda)
+    w8 = torch.zeros((3, 3, 32, 32), dtype=torch.int8, device=cuda)
+    w8[1, 1] = torch.eye(32, dtype=torch.int8, device=cuda)
+    deq, b = torch.ones(32, device=cuda), torch.zeros(32, device=cuda)
+    g = torch.Generator().manual_seed(0)
+    xs = x.flatten().float().cpu()
+    xs = xs[(xs.abs() > 1e-3) & (xs.abs() < 1e3)]
+    for i in range(40):
+        x0 = float(xs[int(torch.randint(len(xs), (1,), generator=g))])
+        sx = float(torch.tensor(abs(x0) / (int(torch.randint(127, (1,), generator=g)) + 0.5)))
+        assert torch.equal(conv3x3_relu_int8(x, w8, sx, deq, b, False),
+                           conv3x3_relu_int8_plain(x, w8, sx, deq, b, False)), sx
 
 
 @pytest.mark.gpu

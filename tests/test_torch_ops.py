@@ -28,7 +28,7 @@ from s1s2_torch.ops import _build
 from s1s2_torch.ops import pixel_shuffle as tps
 from s1s2_torch.ops.conv3x3 import (conv3x3_int8_acc_plain, conv3x3_relu,
                                     conv3x3_relu_int8, conv3x3_relu_int8_plain,
-                                    conv3x3_relu_plain, quantize_act)
+                                    conv3x3_relu_plain, packed_int8_weight, quantize_act)
 from s1s2_torch.ops.fused_elementwise import (ddim_coefs, ddim_update_plain,
                                               fused_ddim_update)
 from s1s2_torch.sampling.samplers import _ddim_linspace_scan
@@ -151,6 +151,41 @@ class TestConvInt8Plain:
         got = quantize_act(torch.from_numpy(xb.copy()).to(torch.bfloat16), sx).numpy()
         np.testing.assert_array_equal(got, want)
 
+    def test_kernel_quantizer_arithmetic_is_the_ieee_division(self, rng):
+        """The card's quantizer (csrc/conv3x3.cu quantize_act) in float32
+        numpy: t = x·RN(1/sx), the IEEE quotient only where t lies within
+        3.1e-5 of a half-integer, rint by adding and subtracting 1.5·2^23.
+        Equal to the plain version for every finite bf16 x, at scales where
+        many quotients are exact half-integers (powers of two), at scales
+        sx = RN(x0 / (k + 0.5)) that put a quotient within an ulp of a
+        half-integer (without the IEEE fallback, some of these differ) and
+        at random ones."""
+        f32 = np.float32
+        bits = np.arange(1 << 16, dtype=np.uint32) << np.uint32(16)
+        x = bits.view(np.float32)
+        x = x[np.isfinite(x)]
+        xb = torch.from_numpy(x.copy()).to(torch.bfloat16)
+        assert torch.equal(xb.float(), torch.from_numpy(x))  # every value is a bf16
+        magic = f32(12582912.0)
+        scales = [f32(2.0) ** k for k in range(-24, 8)]
+        scales += list((10.0 ** rng.uniform(-8, 3, 200)).astype(np.float32))
+        scales += list((rng.uniform(0.5, 40.0, 50) / 127.0).astype(np.float32))
+        x0 = x[(np.abs(x) > 1e-3) & (np.abs(x) < 1e3)]
+        scales += [f32(abs(float(rng.choice(x0))) / (int(rng.integers(0, 127)) + 0.5))
+                   for _ in range(300)]
+        with np.errstate(over="ignore", invalid="ignore"):
+            for sx in scales:
+                sx = f32(sx)
+                t = x * (f32(1.0) / sx)
+                h = np.abs(t)
+                dist = np.abs(h - ((h + magic) - magic))
+                near = (h < f32(128.0)) & (dist > f32(0.5) - f32(3.1e-5))
+                t = np.where(near, x / sx, t)
+                t = np.clip(t, f32(-128.0), f32(128.0))
+                q = np.clip((t + magic).view(np.int32) - 0x4B400000, -127, 127)
+                np.testing.assert_array_equal(q.astype(np.int8), quantize_act(xb, float(sx)).numpy(),
+                                              err_msg=f"sx={sx!r}")
+
     def test_quantizer_against_xla(self, rng):
         """XLA compiles the JAX package's ``x / sx`` (sx a compile-time
         constant) into a multiplication by the f32 reciprocal; the port
@@ -221,6 +256,31 @@ class TestConvInt8Plain:
         got = (torch.from_numpy(acc).float() * torch.from_numpy(deq)
                + torch.from_numpy(b)).to(torch.bfloat16)
         _bf16_close(got.float().numpy(), ref)
+
+    @pytest.mark.parametrize("B,H,W,Ci,Co", INT8_SHAPES + [(1, 8, 8, 129, 70)])
+    def test_packed_weights_give_the_same_implicit_gemm(self, rng, B, H, W, Ci, Co):
+        """The card kernel's int8 layout: weights (9, Cout up to 64, Cin up
+        to 32), activations with Cin zero-padded to 32, summed as nine
+        shifted (B·H·W, Cin_pad) × (Cin_pad, Cout) products, tap = 3·ky + kx.
+        Equal to the plain int32 accumulator; packed once per weight tensor,
+        again only after an in-place change."""
+        xb, w8, *_, sx = _int8_case(rng, B, H, W, Ci, Co)
+        x8 = quantize_act(torch.from_numpy(xb.copy()).to(torch.bfloat16), sx)
+        w = torch.from_numpy(w8)
+        p = packed_int8_weight(w)
+        cs, cop = -(-Ci // 32) * 32, -(-Co // 64) * 64
+        assert p.dtype == torch.int8 and tuple(p.shape) == (9, cop, cs)
+        assert not p[:, Co:].any() and not p[:, :, Ci:].any()
+        xp = torch.zeros((B, H + 2, W + 2, cs), dtype=torch.int64)
+        xp[:, 1:-1, 1:-1, :Ci] = x8.long()
+        acc = torch.zeros((B, H, W, cop), dtype=torch.int64)
+        for tap in range(9):
+            ky, kx = divmod(tap, 3)
+            acc += xp[:, ky:ky + H, kx:kx + W] @ p[tap].long().T
+        assert torch.equal(acc[..., :Co].int(), conv3x3_int8_acc_plain(x8, w))
+        assert packed_int8_weight(w) is p
+        w.mul_(-1)
+        assert torch.equal(packed_int8_weight(w)[:, :Co, :Ci], -p[:, :Co, :Ci])
 
     def test_wrapper_on_cpu_is_plain(self, rng):
         xb, w8, sw, b, sx = _int8_case(rng, 1, 8, 8, 6, 5)

@@ -13,6 +13,7 @@ from s1s2.core import Schedule as JSchedule
 from s1s2.core.parametrize import q_sample as j_q_sample
 from s1s2.models import UNetSmall as JUNet
 from s1s2.models import quant as jq
+from s1s2_torch.core.random import PRNGKey
 from s1s2_torch.models import quant as tq
 from s1s2_torch.models.weights import params_from_numpy
 from s1s2_torch.ops.conv3x3 import conv3x3_relu, conv3x3_relu_int8
@@ -141,9 +142,9 @@ def test_seeded_calibration_is_deterministic():
     gt = torch.rand((2, 8, 8, 4))
     cond = torch.rand((2, 8, 8, 4))
     ab = JSchedule.cosine(1000).alpha_bar_np()
-    a = tq.make_sampler_calib(gt, cond, ab, TVALS, seed=5)
-    b = tq.make_sampler_calib(gt, cond, ab, TVALS, seed=5)
-    c = tq.make_sampler_calib(gt, cond, ab, TVALS, seed=6)
+    a = tq.make_sampler_calib(gt, cond, ab, TVALS)  # PRNGKey(5)
+    b = tq.make_sampler_calib(gt, cond, ab, TVALS, key=PRNGKey(5))
+    c = tq.make_sampler_calib(gt, cond, ab, TVALS, key=PRNGKey(6))
     assert all(torch.equal(x[0], y[0]) for x, y in zip(a, b))
     assert not torch.equal(a[0][0], c[0][0])
     assert [int(x[1][0]) for x in a] == list(TVALS)
