@@ -8,10 +8,14 @@ Phases, each printing its own seconds:
 1. Device: a CUDA card must be present (else exit 1, no result); prints
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
 2. Build: compiles ``s1s2_torch/ops/csrc/*.cu`` with nvcc and prints each
-   conv kernel's registers and shared memory (ptxas). ``cuobjdump -sass`` of
-   the built library must show tensor-core instructions in the conv
-   kernels (``HMMA`` in every ``conv3x3_bf16_kernel``, ``IMMA`` in
-   ``conv3x3_int8_kernel``) and no ``IDP4A`` or ``FFMA`` there.
+   conv, matmul and halo kernel's registers and shared memory (ptxas).
+   ``cuobjdump -sass`` of the built library must show (``sass_rules``):
+   ``HMMA`` in every ``conv3x3_bf16_kernel`` and ``IMMA`` in
+   ``conv3x3_int8_kernel``, no ``IDP4A`` or ``FFMA`` there; ``HGMMA`` in the
+   bf16 ``matmul_kernel``s and ``IGMMA`` in the int8 one, each with TMA
+   loads (``UTMALDG``) and no ``HMMA``/``IMMA``/``LDGSTS``; bulk loads and
+   bulk stores (``UBLKCP.S.G``, ``UBLKCP.G.S``) and no ``LDG``/``STG`` in
+   ``halo_rows_x2_kernel``.
 3. Kernels against their plain PyTorch versions at the main path's shapes
    (the 24x4 student's 13 convs, B=8; the DDIM update at (128,256,256,4)):
    conv bf16 within 1 bf16 ulp plus the f32 accumulation-order bound,
@@ -21,8 +25,9 @@ Phases, each printing its own seconds:
 3b. The probe kernels against their plain versions: the matmul int8
    bit-equal at 512³ and 8192×2048×2048, bf16 → f32 within the f32
    accumulation-order bound and bf16 → bf16 within that plus 1 bf16 ulp;
-   the halo kernel bit-equal on every row at (256,128,128) with TH=32 and at
-   ragged heights where TH does not divide H−2.
+   the halo kernel bit-equal on every row at (256,128,128) with TH=32, at
+   ragged heights where TH does not divide H−2, and at (1026,256,128), where
+   every block cycles its ring of slots.
 3c. The conv kernel at every shape of the full-width base-96 UNet (256²,
    9→96 up to 768→768 at 64²) and of the 16x2 and 12 students (their
    checkpoints' own weights), bf16 and int8, at B=1 (256²) or 2, with the
@@ -57,7 +62,9 @@ Phases, each printing its own seconds:
 Each path of 4-4d is driven with every launch count set to 0 just before it
 and read just after; a kernel of the path that was not launched fails it.
 Then a ``{"kernels": [...]}`` line (the conv rows' times are those of the
-24x4 main path at B=128; launches are summed over the paths), the card line
+24x4 main path at B=128; the matmul has a row per mode, bf16 → bf16 beside
+``torch.matmul`` and int8 → int32 beside ``torch._int_mm``; launches are
+summed over the paths), the card line
 again, and last ``{"ok": true, "device": {...}}``. Any failure raises, and
 no result is printed. The port never calls cuDNN, cuBLAS's ``torch.matmul``
 on the probe's operands or ``torch._int_mm``; they are timed here only as
@@ -79,7 +86,8 @@ LEVEL = {"inc": 0, "down1": 0, "down2": 1, "down3": 2, "conv3": 2, "conv2": 1,
          "conv1": 0}
 SMOKE_LINE1_BATCH = 4  # line 1 here; line 2 runs at the bench's own batch
 MATMUL_SHAPES = ((512, 512, 512), (8192, 2048, 2048))  # (M, K, N)
-HALO_CASES = ((256, 128, 128, 32), (250, 128, 128, 32), (37, 5, 4, 7))  # (H, W, C, TH)
+HALO_CASES = ((256, 128, 128, 32), (250, 128, 128, 32), (37, 5, 4, 7),  # (H, W, C, TH)
+              (1026, 256, 128, 32))
 RUNGS = (("16x2", 0.33557), ("12", 0.34379))  # committed evidence MAEs
 # the ops of an int8 forward (``quant._forward``), looked up in the quant
 # module at call time
@@ -122,13 +130,53 @@ def conv_shapes(state, body):
     return out
 
 
-def sass_check(lib):
-    """``cuobjdump -sass`` of the built library: per conv kernel (and the int8
-    mode's quantize kernel), the counts of its tensor-core and CUDA-core
-    multiply instructions. → {mangled name: {op: count}}; raises unless every
-    bf16 conv kernel has HMMA, the int8 one IMMA, and neither IDP4A nor
-    FFMA."""
+SASS_KERNELS = ("conv3x3", "quantize_pad", "matmul_kernel", "transpose_i8", "halo_rows_x2")
+SASS_OPS = ("HMMA", "IMMA", "HGMMA", "IGMMA", "FFMA", "IDP4A", "LDSM", "LDGSTS", "UTMALDG",
+            "UBLKCP.S.G", "UBLKCP.G.S", "LDG", "STG")
+# (kernel name contains, SASS ops that must occur, ops that must not)
+SASS_RULES = (
+    ("conv3x3_bf16_kernel", ("HMMA",), ("IDP4A", "FFMA")),
+    ("conv3x3_int8_kernel", ("IMMA",), ("IDP4A", "FFMA")),
+    ("matmul_kernelILi0E", ("HGMMA", "UTMALDG"), ("HMMA", "IMMA", "LDGSTS")),
+    ("matmul_kernelILi1E", ("HGMMA", "UTMALDG"), ("HMMA", "IMMA", "LDGSTS")),
+    ("matmul_kernelILi2E", ("IGMMA", "UTMALDG"), ("HMMA", "IMMA", "LDGSTS")),
+    ("halo_rows_x2_kernel", ("UBLKCP.S.G", "UBLKCP.G.S"), ("LDG", "STG")),
+)
+
+
+def sass_counts(text):
+    """{mangled name: {op: count}} of the kernels ``SASS_KERNELS`` names in
+    ``cuobjdump -sass`` output, for every op of ``SASS_OPS`` (an op counts
+    with any suffix: ``HGMMA`` matches ``HGMMA.64x256x16.F32.BF16``)."""
     import re
+
+    counts = {}
+    for fn in re.split(r"\n\s*Function : ", text)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if any(k in name for k in SASS_KERNELS):
+            counts[name] = {op: len(re.findall(r"\b%s\b" % re.escape(op), fn))
+                            for op in SASS_OPS}
+    return counts
+
+
+def sass_rules(counts):
+    """Raises unless every rule of ``SASS_RULES`` names at least one kernel,
+    and each kernel it names has every op it needs and none it forbids: the
+    convs on ``mma.sync``, the matmul on ``wgmma`` fed by TMA, the halo load
+    on bulk copies. A kernel that fell back to older instructions fails."""
+    for key, need, forbid in SASS_RULES:
+        names = [n for n in counts if key in n]
+        if not names:
+            raise AssertionError(f"no {key} in the SASS: {sorted(counts)}")
+        for n in names:
+            c = counts[n]
+            if any(c[op] == 0 for op in need) or any(c[op] for op in forbid):
+                raise AssertionError(f"{n}: needs {need}, forbids {forbid}; has {c}")
+
+
+def sass_check(lib):
+    """``cuobjdump -sass`` of the built library → ``sass_counts``, held to
+    ``sass_rules``."""
     from pathlib import Path
 
     from s1s2_torch.ops import _build
@@ -136,21 +184,8 @@ def sass_check(lib):
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                          timeout=300, check=True).stdout
-    counts = {}
-    for fn in re.split(r"\n\s*Function : ", out)[1:]:
-        name = fn.split("\n", 1)[0].strip()
-        if "conv3x3" in name or "quantize_pad" in name:
-            counts[name] = {op: len(re.findall(r"\b%s\b" % op, fn))
-                            for op in ("HMMA", "IMMA", "FFMA", "IDP4A", "LDSM", "LDGSTS")}
-    bf16 = [n for n in counts if "conv3x3_bf16_kernel" in n]
-    int8 = [n for n in counts if "conv3x3_int8_kernel" in n]
-    if not bf16 or not int8:
-        raise AssertionError(f"conv kernels missing from the SASS: {sorted(counts)}")
-    for n in bf16 + int8:
-        c = counts[n]
-        mma = c["HMMA"] if n in bf16 else c["IMMA"]
-        if mma == 0 or c["IDP4A"] or c["FFMA"]:
-            raise AssertionError(f"{n} is not on the tensor cores: {c}")
+    counts = sass_counts(out)
+    sass_rules(counts)
     return counts
 
 
@@ -319,17 +354,20 @@ def main():
     from s1s2_torch.train.checkpoint import load_params
 
     kernels = (conv3x3_relu, conv3x3_relu_int8, fused_ddim_update, matmul, halo_rows_x2)
-    path_launches = {}
+    path_launches, matmul_launches = {}, {}
 
     def drive(path, fn):
         """Run one path with every launch count set to 0 just before it; keep
-        the counts read just after."""
+        the counts read just after (the matmul's also by mode)."""
         for k in kernels:
             k.launches = 0
+        matmul.mode_launches = dict.fromkeys(matmul.mode_launches, 0)
         out = fn()
         torch.cuda.synchronize()
         path_launches[path] = {k.__name__: k.launches for k in kernels}
-        print(f"launches in {path}: {path_launches[path]}", flush=True)
+        matmul_launches[path] = dict(matmul.mode_launches)
+        print(f"launches in {path}: {path_launches[path]}; matmul by mode "
+              f"{matmul_launches[path]}", flush=True)
         return out
 
     def require(cond, what):
@@ -342,8 +380,8 @@ def main():
               flush=True)
         prev = ""
         for line in info.ptxas:  # each kernel's "Compiling entry" line, then its usage
-            if "conv3x3" in line or "quantize_pad" in line or (
-                    "Used" in line and any(k in prev for k in ("conv3x3", "quantize_pad"))):
+            if any(k in line for k in SASS_KERNELS) or (
+                    "Used" in line and any(k in prev for k in SASS_KERNELS)):
                 print(f"ptxas: {line}", flush=True)
             prev = line
         for name, c in sass_check(info.path).items():
@@ -430,7 +468,8 @@ def main():
         torch.cuda.empty_cache()
         return ms, plain_ms, lib_ms, bound, by
 
-    err = {k.__name__: 0.0 for k in kernels}
+    err = {k.__name__: 0.0 for k in kernels if k is not matmul}
+    err.update({"matmul bf16": 0.0, "matmul int8": 0.0})
     with Phase("kernels vs plain versions"):
         for name, H, Cin, Cout, mode in shapes:
             for m in ("bf16", "int8") if mode == "int8" else ("bf16",):
@@ -472,7 +511,9 @@ def main():
         for M, K, N in MATMUL_SHAPES:
             a8 = torch.randint(-128, 128, (M, K), generator=gen, device=dev).to(torch.int8)
             b8 = torch.randint(-128, 128, (K, N), generator=gen, device=dev).to(torch.int8)
-            exact = torch.equal(matmul(a8, b8, torch.int32), matmul_plain(a8, b8, torch.int32))
+            got8, ref8 = matmul(a8, b8, torch.int32), matmul_plain(a8, b8, torch.int32)
+            exact = torch.equal(got8, ref8)
+            err["matmul int8"] = max(err["matmul int8"], float((got8 - ref8).abs().max()))
             ab16 = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
             bb16 = torch.randn((K, N), generator=gen, device=dev).to(torch.bfloat16)
             ref32 = matmul_plain(ab16, bb16, torch.float32)
@@ -485,12 +526,12 @@ def main():
                   and bool((d16 <= tol + ref32.abs() * 2.0 ** -8).all()))
             e = max(float(d32.max()),
                     float((got16 - matmul_plain(ab16, bb16, torch.bfloat16).float()).abs().max()))
-            err["matmul"] = max(err["matmul"], e)
+            err["matmul bf16"] = max(err["matmul bf16"], e)
             print(f"check matmul {M}x{K}x{N}: int8 bit-equal={exact}, bf16->f32 max_abs_err="
                   f"{float(d32.max()):.3g}, bf16->bf16 max_abs_err {e:.3g} (against the plain "
                   f"bf16 output) {'ok' if ok else 'FAIL'}", flush=True)
             require(ok, f"matmul kernel disagrees at {M}x{K}x{N}")
-            del a8, b8, ab16, bb16, ref32, tol, d32, got16, d16
+            del a8, b8, got8, ref8, ab16, bb16, ref32, tol, d32, got16, d16
         for H, W, C, TH in HALO_CASES:
             x = torch.randn((H, W, C), generator=gen, device=dev)
             got, ref = halo_rows_x2(x, TH), halo_rows_x2_plain(x)
@@ -640,8 +681,8 @@ def main():
     with Phase("probe path: probe_int8 all"):
         probe = drive("probe", lambda: probe_int8.main(["all"]))
         n = path_launches["probe"]
-        require(n["matmul"] >= 1 and n["halo_rows_x2"] >= 1,
-                f"the probe path missed a kernel: {n}")
+        require(min(matmul_launches["probe"].values()) >= 1 and n["halo_rows_x2"] >= 1,
+                f"the probe path missed a kernel: {n}, matmul by mode {matmul_launches['probe']}")
         torch.cuda.empty_cache()
 
     rows = []
@@ -692,7 +733,7 @@ def main():
                   f"{t['bound']:.3f} ms", flush=True)
 
         M, K, N = MATMUL_SHAPES[1]
-        mm = dict(ms=0.0, plain=0.0, library=0.0, bound=0.0, bytes=0.0, operations=0.0)
+        mm = {}
         for mode in ("bf16", "int8"):
             if mode == "bf16":
                 ins = [(torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16),
@@ -715,9 +756,7 @@ def main():
                   f"({2 * M * K * N / ms / 1e9:.1f} T/s), plain {plain_ms:.4f} ms, "
                   f"{lfn.__name__} {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); probe best "
                   f"of 8: {probe['matmul']['kernel_' + mode]:.4f} ms", flush=True)
-            for k, v in (("ms", ms), ("plain", plain_ms), ("library", lib_ms), ("bound", bound),
-                         (by, bound)):
-                mm[k] += v
+            mm[mode] = dict(ms=ms, plain=plain_ms, library=lib_ms, bound=bound, by=by)
             del ins
         H, W, C, TH = HALO_CASES[0]
         ins = [(torch.randn((H, W, C), generator=gen, device=dev),) for _ in range(2)]
@@ -733,6 +772,7 @@ def main():
 
     total_launches = {k.__name__: sum(n[k.__name__] for n in path_launches.values())
                       for k in kernels}
+    total_matmul = {m: sum(n[m] for n in matmul_launches.values()) for m in ("bf16", "int8")}
     src = "s1s2_torch/ops/csrc/"
     for key, mode, replaces in (("conv3x3_relu", "bf16", "s1s2/ops/conv3x3.py:162"),
                                 ("conv3x3_relu_int8", "int8", "s1s2/ops/conv3x3.py:130")):
@@ -749,12 +789,13 @@ def main():
                  "launches": total_launches["fused_ddim_update"],
                  "max_abs_err": err["fused_ddim_update"], "ms": d_ms, "plain_ms": d_plain,
                  "bound_ms": d_bound, "bound_by": "bytes", "library_ms": None})
-    rows.append({"name": "matmul (bf16->bf16 + int8->int32, 8192x2048x2048)", "route": "cuda",
-                 "source": src + "matmul.cu", "replaces": "tools/probe_pallas_int8.py:43",
-                 "launches": total_launches["matmul"], "max_abs_err": err["matmul"],
-                 "ms": mm["ms"], "plain_ms": mm["plain"], "bound_ms": mm["bound"],
-                 "bound_by": "bytes" if mm["bytes"] >= mm["operations"] else "operations",
-                 "library_ms": mm["library"]})
+    for mode in ("bf16", "int8"):
+        t = mm[mode]
+        rows.append({"name": f"matmul ({mode} mode)", "route": "cuda",
+                     "source": src + "matmul.cu", "replaces": "tools/probe_pallas_int8.py:43",
+                     "launches": total_matmul[mode], "max_abs_err": err[f"matmul {mode}"],
+                     "ms": t["ms"], "plain_ms": t["plain"], "bound_ms": t["bound"],
+                     "bound_by": t["by"], "library_ms": t["library"]})
     rows.append({"name": "halo_rows_x2 (256,128,128) TH=32", "route": "cuda",
                  "source": src + "halo.cu", "replaces": "tools/probe_pallas_int8.py:133",
                  "launches": total_launches["halo_rows_x2"],

@@ -32,6 +32,8 @@ import time
 from pathlib import Path
 from typing import List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
 LIB_NAME = "libs1s2k.so"
@@ -160,8 +162,8 @@ class Kernels:
             "s1s2k_conv3x3_int8": [P, P, P, P, P, P, I, I, I, I, I, F, I, I, P],
             # x, eps, x0, xn, n, s1m, sabg, sabn, s1mn, device, stream
             "s1s2k_ddim_update": [P, P, P, P, ctypes.c_int64, F, F, F, F, I, P],
-            # a, b, c, M, N, K, mode, device, stream
-            "s1s2k_matmul": [P, P, P, I, I, I, I, I, P],
+            # a, b, b_t scratch (int8), c, M, N, K, mode, device, stream
+            "s1s2k_matmul": [P, P, P, P, I, I, I, I, I, P],
             # x, y, H, W, C, TH, device, stream
             "s1s2k_halo_rows_x2": [P, P, I, I, I, I, I, P],
         }
@@ -180,6 +182,16 @@ def kernels() -> Kernels:
     for line in info.ptxas:
         print(line, flush=True)
     return Kernels(info)
+
+
+def stream(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device`` (a CUDA
+    ``torch.device``), for a launch. It skips the ``torch.cuda.Stream``
+    object that ``torch.cuda.current_stream(device).cuda_stream`` builds on
+    every call, which takes about as much host time as the launch itself:
+    for a kernel as short as the probe's halo load, the host sets the
+    pace."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(rc: int, what: str) -> None:

@@ -7,9 +7,11 @@ window times 2.0, so that ``out[r] = 2·x[r + 1]`` for out (H−2, W, C). The
 Pallas grid ``(H−2)//TH`` never writes the rows past its last whole tile;
 here the last row tile may be short and every output row is written.
 
-The CUDA kernel (``csrc/halo.cu``) loads each window row over a chunk of
-columns into shared memory with a bulk asynchronous copy against an
-mbarrier. It takes f32, C a multiple of 4 (16-byte rows).
+The CUDA kernel (``csrc/halo.cu``) streams the rows through shared memory
+with bulk asynchronous copies: persistent blocks walk column chunks down
+the rows, each through a ring of slots that overlaps bulk loads, the
+scaling and bulk stores, so every row of x is read once and the output does
+not depend on ``th``. It takes f32, C a multiple of 4 (16-byte rows).
 
 The wrapper runs its plain PyTorch version when the tensor lies on the CPU
 and launches the kernel when it lies on a CUDA device; it never falls back
@@ -41,10 +43,10 @@ def halo_rows_x2(x: torch.Tensor, th: int = 32) -> torch.Tensor:
         raise ValueError("halo kernel: x must be contiguous f32, 16-byte aligned, "
                          f"with C a multiple of 4; got {x.dtype} {tuple(x.shape)}")
     k = _build.kernels()
-    y = torch.empty((H - 2, W, C), dtype=torch.float32, device=x.device)
+    y = x.new_empty((H - 2, W, C))
     rc = k.s1s2k_halo_rows_x2(x.data_ptr(), y.data_ptr(), H, W, C, int(th),
                               x.device.index,
-                              torch.cuda.current_stream(x.device).cuda_stream)
+                              _build.stream(x.device))
     _build.check(rc, "halo_rows_x2")
     halo_rows_x2.launches += 1
     return y

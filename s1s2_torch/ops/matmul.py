@@ -8,19 +8,27 @@ Port of the Pallas kernel ``pallas_matmul`` of the JAX package's
 * int8 × int8, int32 accumulation, out int32. The sum is exact while
   ``K·128² < 2³¹`` (int8 holds −128), that is ``K ≤ 131,071``.
 
-The CUDA kernel (``csrc/matmul.cu``) takes 128 × 128 tiles of C and K in
-steps of 32 (bf16) or 64 (int8). The Pallas grid drops any remainder
-silently; this wrapper raises on a shape that is not a tile multiple, and on
-any other dtype.
+The CUDA kernel (``csrc/matmul.cu``) runs on Hopper's ``wgmma`` with its
+operands brought into shared memory by TMA. It takes M and N in multiples
+of 128 and K in steps of 32 (bf16) or 64 (int8). The Pallas grid drops any
+remainder silently; this wrapper raises on a shape that is not such a
+multiple, and on any other dtype. ``wgmma`` reads int8 operands K-major
+only, so the int8 mode transposes B on the card first, into a scratch
+``(N, K)`` tensor that this wrapper allocates (``b_scratch``); that pass is
+part of the call.
 
 The wrapper runs its plain PyTorch version when the tensors lie on the CPU
 and launches the kernel when they lie on a CUDA device; it never falls back
-from one to the other. ``matmul.launches`` counts the kernel launches. The
-PyTorch library calls of the probe (``torch.matmul``, ``torch._int_mm``) are
-yardsticks only; nothing here calls them.
+from one to the other. ``matmul.launches`` counts the kernel launches (one
+per call, the int8 mode's transpose included), ``matmul.mode_launches`` the
+same by input type. The PyTorch library calls of the probe
+(``torch.matmul``, ``torch._int_mm``) are yardsticks only; nothing here
+calls them.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -65,6 +73,16 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor,
     return y.to(out_dtype)
 
 
+def b_scratch(b: torch.Tensor) -> Optional[torch.Tensor]:
+    """The int8 mode's K-major copy of ``b (K, N)``: an uninitialised
+    ``(N, K)`` int8 tensor on b's device, which the kernel fills before the
+    product. None for bf16, whose B the kernel reads as it is."""
+    if b.dtype != torch.int8:
+        return None
+    K, N = b.shape
+    return b.new_empty((N, K))
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor,
            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """a (M, K), b (K, N) → (M, N) in ``out_dtype``. Raises on a shape that
@@ -82,13 +100,17 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
         if t.device != a.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: must be contiguous, 16-byte aligned, on {a.device}")
     k = _build.kernels()
-    c = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    rc = k.s1s2k_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
+    bt = b_scratch(b)
+    c = a.new_empty((M, N), dtype=out_dtype)
+    rc = k.s1s2k_matmul(a.data_ptr(), b.data_ptr(), None if bt is None else bt.data_ptr(),
+                        c.data_ptr(), M, N, K,
                         _MODES[(a.dtype, out_dtype)], a.device.index,
-                        torch.cuda.current_stream(a.device).cuda_stream)
+                        _build.stream(a.device))
     _build.check(rc, "matmul")
     matmul.launches += 1
+    matmul.mode_launches["int8" if a.dtype == torch.int8 else "bf16"] += 1
     return c
 
 
 matmul.launches = 0
+matmul.mode_launches = {"bf16": 0, "int8": 0}  # the same launches, by input type

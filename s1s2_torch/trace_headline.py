@@ -1,6 +1,6 @@
 """Where the time of a path goes on the card.
 
-    python -m s1s2_torch.trace_headline [--path headline|line1|line2]
+    python -m s1s2_torch.trace_headline [--path headline|line1|line2|probe]
                                         [--steps N] [--trace out.json]
 
 ``headline`` (the default) prepares the main path as
@@ -13,14 +13,20 @@ in the bench's 50) and int8 DPM-Solver++(2M)-5 at B=64, one untimed call,
 then 2 profiled calls. Under ``torch.profiler`` it prints, per call: the
 wall time on CUDA events, the device time of each kernel (the hand-written
 ones and PyTorch's own), and the device's idle share (1 − summed kernel
-time / wall time). With ``--trace`` it also writes the Chrome trace. It
-needs a CUDA card.
+time / wall time). With ``--trace`` it also writes the Chrome trace.
+``probe`` takes the probe's kernels (``tools/probe_int8.py``'s shapes) and
+their PyTorch yardsticks one by one, each over 50 back-to-back calls that
+cycle through two inputs, as ``chip_smoke.py`` times them: the host's
+enqueue time and the event-loop time per call without the profiler, then
+under it the device time per call and the idle share. It needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import time
 from typing import Callable, Dict, List
 
 import torch
@@ -31,7 +37,7 @@ from s1s2_torch.models.quant import make_quant_denoise_fn
 from s1s2_torch.sampling.samplers import ddim_anchored
 
 OURS = ("conv3x3_int8_kernel", "quantize_pad_kernel", "conv3x3_bf16_kernel",
-        "ddim_update_kernel", "matmul_kernel", "halo_rows_x2_kernel")
+        "ddim_update_kernel", "matmul_kernel", "transpose_i8_kernel", "halo_rows_x2_kernel")
 
 
 def _device_us(evt) -> float:
@@ -106,12 +112,83 @@ def breakdown_bench(line: int, steps: int = 2, trace: str = "") -> Dict:
     return {"path": f"line{line}", "batch": batch, **profile(step, 2, 1, trace)}
 
 
+PROBE_CALLS = 50
+
+
+def breakdown_probe() -> List[Dict]:
+    """The probe kernels beside their PyTorch yardsticks at the probe's
+    shapes: per call, the host's enqueue time and the CUDA-event time of 50
+    back-to-back calls without the profiler, then the device time and idle
+    share of 50 more under it."""
+    if not torch.cuda.is_available():
+        raise SystemExit("trace_headline needs a CUDA card")
+    from s1s2_torch.ops.halo import halo_rows_x2
+    from s1s2_torch.ops.matmul import matmul
+    from s1s2_torch.tools.probe_int8 import DMA_SHAPE, DMA_TH, MATMUL_SHAPE
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    xs = [torch.randn(DMA_SHAPE, generator=g, device=dev) for _ in range(2)]
+    M, K, N = MATMUL_SHAPE
+    b16 = [(torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16),
+            torch.randn((K, N), generator=g, device=dev).to(torch.bfloat16)) for _ in range(2)]
+    i8 = [(torch.randint(-128, 128, (M, K), generator=g, device=dev).to(torch.int8),
+           torch.randint(-128, 128, (K, N), generator=g, device=dev).to(torch.int8))
+          for _ in range(2)]
+    cases = (
+        ("halo_rows_x2", lambda i: halo_rows_x2(xs[i % 2], DMA_TH)),
+        ("x[1:-1]*2", lambda i: xs[i % 2][1:-1] * 2.0),
+        ("matmul bf16->bf16", lambda i: matmul(*b16[i % 2], torch.bfloat16)),
+        ("torch.matmul bf16", lambda i: torch.matmul(*b16[i % 2])),
+        ("matmul int8->int32", lambda i: matmul(*i8[i % 2], torch.int32)),
+        ("torch._int_mm", lambda i: torch._int_mm(*i8[i % 2])),
+    )
+    out = []
+    for name, fn in cases:
+        count = itertools.count()
+
+        def step(fn=fn, count=count):
+            return fn(next(count))
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(PROBE_CALLS):
+            step()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3 / PROBE_CALLS
+        torch.cuda.synchronize()
+        loop_ms = start.elapsed_time(end) / PROBE_CALLS
+        r = profile(step, PROBE_CALLS, 0)
+        out.append({"name": name, "host_ms": host_ms, "loop_ms": loop_ms,
+                    "profiled_wall_ms": r["wall_ms"], "device_ms": r["kernel_ms"],
+                    "idle_share": r["idle_share"], "kernels": r["kernels"]})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("headline", "line1", "line2"), default="headline")
+    ap.add_argument("--path", choices=("headline", "line1", "line2", "probe"),
+                    default="headline")
     ap.add_argument("--steps", type=int, default=2, help="line 1's DDIM steps")
-    ap.add_argument("--trace", default="", help="write the Chrome trace here")
+    ap.add_argument("--trace", default="", help="write the Chrome trace here (not probe)")
     args = ap.parse_args(argv)
+    if args.path == "probe":
+        if args.trace:
+            raise SystemExit("--trace is for headline, line1 and line2")
+        rows = breakdown_probe()
+        print(torch.cuda.get_device_name(0))
+        for r in rows:
+            print(f"{r['name']:20s} host {r['host_ms']:.4f} ms/call, event loop "
+                  f"{r['loop_ms']:.4f} ms/call; profiled: wall {r['profiled_wall_ms']:.4f}, "
+                  f"device {r['device_ms']:.4f} ms/call, idle share {r['idle_share']:.3f}")
+            for k in r["kernels"]:
+                print(f"  {k['ms']:9.4f} ms {k['calls']:6.1f}x {k['name'][:100]}")
+            print(json.dumps({k: v for k, v in r.items() if k != "kernels"}))
+        return 0
     r = (breakdown(args.trace) if args.path == "headline"
          else breakdown_bench(int(args.path[-1]), args.steps, args.trace))
     print(f"{r['device']} {r['path']} B={r['batch']}: wall {r['wall_ms']:.4f} ms/iter, "

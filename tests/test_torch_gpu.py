@@ -91,7 +91,11 @@ def test_gpu_ddim_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,N,K", [(128, 128, 64), (256, 384, 512), (512, 512, 512)])
+@pytest.mark.parametrize("M,N,K", [(128, 128, 64), (256, 384, 512), (512, 512, 512),
+                                   # one stage of K; 5 stages (ring of 4); a 128-wide
+                                   # last column tile; 8.5 stages; the probe's shape
+                                   (256, 128, 640), (128, 384, 192), (384, 640, 1088),
+                                   (8192, 2048, 2048)])
 def test_gpu_matmul_int8_bit_equal(cuda, M, N, K):
     g = torch.Generator(device=cuda).manual_seed(0)
     a = torch.randint(-128, 128, (M, K), generator=g, device=cuda).to(torch.int8)
@@ -100,7 +104,11 @@ def test_gpu_matmul_int8_bit_equal(cuda, M, N, K):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,N,K", [(128, 128, 32), (256, 384, 512), (512, 512, 2048)])
+@pytest.mark.parametrize("M,N,K", [(128, 128, 32), (256, 384, 512), (512, 512, 2048),
+                                   # half a stage of K; 5 stages (ring of 4); a 128-wide
+                                   # last column tile; 8.5 stages; the probe's shape
+                                   (256, 128, 320), (128, 384, 288), (384, 640, 544),
+                                   (8192, 2048, 2048)])
 @pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
 def test_gpu_matmul_bf16_matches_plain(cuda, M, N, K, out):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -118,8 +126,22 @@ def test_gpu_matmul_bf16_matches_plain(cuda, M, N, K, out):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("H,W,C,TH", [(256, 128, 128, 32), (66, 16, 8, 16), (37, 5, 4, 7), (3, 2, 4, 32)])
+@pytest.mark.parametrize("H,W,C,TH", [(256, 128, 128, 32), (66, 16, 8, 16), (37, 5, 4, 7), (3, 2, 4, 32),
+                                      # rows of 1188, 3612, 4124 and 7196 floats: column
+                                      # chunks (at most 4 KB) that split them raggedly;
+                                      # TH above H
+                                      (40, 33, 36, 64), (10, 301, 12, 50), (5, 1031, 4, 9),
+                                      (19, 7, 1028, 3)])
 def test_gpu_halo_writes_every_row(cuda, H, W, C, TH):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn((H, W, C), generator=g, device=cuda)
     assert torch.equal(halo_rows_x2(x, TH), halo_rows_x2_plain(x))
+
+
+@pytest.mark.gpu
+def test_gpu_halo_output_does_not_depend_on_th(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((70, 40, 28), generator=g, device=cuda)
+    want = halo_rows_x2_plain(x)
+    for th in (1, 2, 7, 32, 67, 68, 500):
+        assert torch.equal(halo_rows_x2(x, th), want), th

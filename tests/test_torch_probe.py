@@ -18,7 +18,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from s1s2_torch.ops.halo import halo_rows_x2, halo_rows_x2_plain
-from s1s2_torch.ops.matmul import INT8_MAX_K, matmul, matmul_plain
+from s1s2_torch.ops.matmul import INT8_MAX_K, b_scratch, matmul, matmul_plain
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -91,6 +91,51 @@ def test_matmul_raises_where_the_pallas_grid_drops_a_remainder(shape, dtype):
     with pytest.raises(ValueError, match="multiples"):
         matmul(a, b, out)
     assert tuple(matmul_plain(a, b, out).shape) == (M, N)  # the plain version takes any
+
+
+@pytest.mark.parametrize("M,N,K,dtype", [
+    (128, 128, 32, torch.bfloat16), (128, 128, 64, torch.int8),      # one k step
+    (256, 384, 96, torch.bfloat16), (384, 128, 192, torch.int8),     # N = 3 or 1 x 128
+    (128, 640, 544, torch.bfloat16), (256, 640, 1088, torch.int8),   # K past the ring
+    (640, 256, 160, torch.bfloat16), (128, 1152, 320, torch.int8)])
+def test_matmul_still_takes_every_shape_it_took(M, N, K, dtype):
+    """Every shape of the old tiling (M, N multiples of 128; K of 32 for
+    bf16, 64 for int8) is still accepted, with the plain version's result:
+    exact for int8, the f32 product rounded once for bf16."""
+    rng = np.random.default_rng(M + N + K)
+    if dtype == torch.int8:
+        a8 = rng.integers(-128, 128, (M, K)).astype(np.int8)
+        b8 = rng.integers(-128, 128, (K, N)).astype(np.int8)
+        got = matmul(torch.from_numpy(a8), torch.from_numpy(b8), torch.int32)
+        assert got.dtype == torch.int32 and tuple(got.shape) == (M, N)
+        np.testing.assert_array_equal(got.numpy(), a8.astype(np.int64) @ b8.astype(np.int64))
+        return
+    a = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)).to(torch.bfloat16)
+    want = a.double() @ b.double()
+    tol = 2 * K * 2.0 ** -24 * (a.double().abs() @ b.double().abs())
+    for out in (torch.float32, torch.bfloat16):
+        got = matmul(a, b, out)
+        assert got.dtype == out and tuple(got.shape) == (M, N)
+        bound = tol + (want.abs() * 2.0 ** -8 if out == torch.bfloat16 else 0)
+        assert bool(((got.double() - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("K,N", [(64, 128), (1088, 640), (2048, 2048)])
+def test_int8_b_scratch_is_the_k_major_copy_the_kernel_fills(K, N):
+    """The int8 mode hands the kernel an (N, K) int8 scratch, N·K bytes, on
+    b's device, contiguous, which the kernel fills with bᵀ; bf16 needs
+    none. Filled with bᵀ, it gives the same product through K-major B."""
+    b8 = torch.from_numpy(np.random.default_rng(K).integers(-128, 128, (K, N)).astype(np.int8))
+    bt = b_scratch(b8)
+    assert bt.dtype == torch.int8 and tuple(bt.shape) == (N, K)
+    assert bt.is_contiguous() and bt.device == b8.device
+    assert bt.numel() * bt.element_size() == K * N
+    assert bt.data_ptr() != b8.data_ptr()
+    a8 = torch.from_numpy(np.random.default_rng(N).integers(-128, 128, (128, K)).astype(np.int8))
+    bt.copy_(b8.t())
+    assert torch.equal(a8.long() @ bt.long().t(), matmul(a8, b8, torch.int32).long())
+    assert b_scratch(b8.to(torch.bfloat16)) is None
 
 
 def test_matmul_refuses_other_types_and_an_overflowing_k():

@@ -5,6 +5,7 @@ found it, equal ops pass, and an op that departs from its plain version by
 more than its stated bound fails with its name."""
 
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -80,3 +81,73 @@ def test_check_ops_allows_a_bf16_op_one_ulp_and_no_more(name):
     calls, i = _nudged(calls, name, 64)
     with pytest.raises(AssertionError, match=f"op {i} {name} "):
         chip_smoke.check_ops(torch, F, quant, "cpu", calls)
+
+
+# ``cuobjdump -sass`` text of the kernels as built for sm_90a, cut to the
+# instructions the rules of ``chip_smoke.sass_rules`` read (the spellings are
+# the card's own: ``HGMMA.64x256x16.F32.BF16``, ``UTMALDG.2D``, ``UBLKCP.S.G``)
+_BUILT = {
+    "_ZN4conv19conv3x3_bf16_kernelILb0ELb0EEEvPKv": ["LDSM.16.M88.4 R4, [R2]",
+                                                     "HMMA.16816.F32.BF16 R8, R4, R6, R8"],
+    "_ZN4conv19conv3x3_int8_kernelEPKv": ["LDSM.16.M88.4 R4, [R2]",
+                                          "IMMA.16832.S8.S8 R8, R4.ROW, R6.COL, R8"],
+    "_ZN6matmul13matmul_kernelILi0EEEv14CUtensorMap_st": [
+        "UTMALDG.2D [UR8], [UR4]", "HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24, gsb0",
+        "STG.E.64 desc[UR4][R2.64], R24"],
+    "_ZN6matmul13matmul_kernelILi1EEEv14CUtensorMap_st": [
+        "UTMALDG.2D [UR8], [UR4]", "HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24, gsb0",
+        "F2FP.BF16.F32.PACK_AB R3, R25, R24"],
+    "_ZN6matmul13matmul_kernelILi2EEEv14CUtensorMap_st": [
+        "UTMALDG.2D [UR8], [UR4]", "IGMMA.64x256x32.S8.S8 R24, gdesc[UR4], R24, gsb0"],
+    "_ZN6matmul19transpose_i8_kernelEPKhPhii": ["LDG.E.128 R4, desc[UR4][R2.64]",
+                                                "STG.E.128 desc[UR4][R6.64], R8"],
+    "_ZN4halo19halo_rows_x2_kernelEPKfPfixix": [
+        "UBLKCP.S.G [UR8], [UR6], UR4", "FMUL R4, R4, 2", "UBLKCP.G.S [UR6], [UR8], UR4"],
+}
+
+
+def _sass(kernels):
+    text = "\n\tcode for sm_90a\n"
+    for name, instrs in kernels.items():
+        text += f"\n\t\tFunction : {name}\n\t.headerflags\t@\"EF_CUDA_SM90\"\n"
+        text += "".join(f"        /*{16 * i:04x}*/                   {ins} ;\n"
+                        for i, ins in enumerate(instrs))
+    return text
+
+
+def test_sass_rules_pass_the_kernels_as_built():
+    counts = chip_smoke.sass_counts(_sass(_BUILT))
+    assert set(counts) == set(_BUILT)
+    chip_smoke.sass_rules(counts)
+    mm = counts["_ZN6matmul13matmul_kernelILi1EEEv14CUtensorMap_st"]
+    assert mm["HGMMA"] == 1 and mm["UTMALDG"] == 1 and mm["HMMA"] == 0
+    halo = counts["_ZN4halo19halo_rows_x2_kernelEPKfPfixix"]
+    assert halo["UBLKCP.S.G"] == 1 and halo["UBLKCP.G.S"] == 1 and halo["LDG"] == 0
+    assert counts["_ZN6matmul19transpose_i8_kernelEPKhPhii"]["LDG"] == 1
+
+
+@pytest.mark.parametrize("kernel,instrs", [
+    # the bf16 matmul back on mma.sync with cp.async
+    ("_ZN6matmul13matmul_kernelILi1EEEv14CUtensorMap_st",
+     ["LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64]", "HMMA.16816.F32.BF16 R8, R4, R6, R8"]),
+    # the int8 matmul on wgmma without TMA
+    ("_ZN6matmul13matmul_kernelILi2EEEv14CUtensorMap_st",
+     ["IGMMA.64x256x32.S8.S8 R24, gdesc[UR4], R24, gsb0"]),
+    # the halo load with plain loads and stores
+    ("_ZN4halo19halo_rows_x2_kernelEPKfPfixix",
+     ["LDG.E.128 R4, desc[UR4][R2.64]", "STG.E.128 desc[UR4][R6.64], R4"]),
+    # the halo load with bulk loads but plain stores
+    ("_ZN4halo19halo_rows_x2_kernelEPKfPfixix",
+     ["UBLKCP.S.G [UR8], [UR6], UR4", "STG.E.128 desc[UR4][R6.64], R4"]),
+    # a conv off the tensor cores
+    ("_ZN4conv19conv3x3_bf16_kernelILb0ELb0EEEvPKv", ["FFMA R8, R4, R6, R8"]),
+])
+def test_sass_rules_fail_a_kernel_that_fell_back(kernel, instrs):
+    with pytest.raises(AssertionError, match=re.escape(kernel)):
+        chip_smoke.sass_rules(chip_smoke.sass_counts(_sass({**_BUILT, kernel: instrs})))
+
+
+def test_sass_rules_fail_a_missing_kernel():
+    built = {k: v for k, v in _BUILT.items() if "halo" not in k}
+    with pytest.raises(AssertionError, match="no halo_rows_x2_kernel"):
+        chip_smoke.sass_rules(chip_smoke.sass_counts(_sass(built)))
