@@ -32,6 +32,12 @@ Phases, each printing its own seconds:
    9→96 up to 768→768 at 64²) and of the 16x2 and 12 students (their
    checkpoints' own weights), bf16 and int8, at B=1 (256²) or 2, with the
    tolerances of phase 3.
+3d. The int8 mode with per-input-channel scales (the CFG path's): bit-equal
+   to its plain version at the cfg_v teacher's 10 int8 conv shapes at B=64
+   (its folded weights and rollout-calibrated scales, ``conv1`` in bf16),
+   and its quantizer on every finite bf16 value with 32 scales at a time
+   near k + 1/2; then both modes (per tensor) at the full-resolution shapes
+   of the ladder's base-64, 48 and 32 students, inc to conv1.conv2.
 4. Main path: ``run_headline("24x4")`` — checkpoint through the port's own
    reader, 32-file evidence set, calibration (``PRNGKey(5)``), int8
    quantization, GT-anchored DDIM-1 on ``normal(PRNGKey(1234))``, masked
@@ -52,17 +58,28 @@ Phases, each printing its own seconds:
    forwards checked op by op as in 4.
 4d. The probe path: ``python -m s1s2_torch.tools.probe_int8 all`` in
    process.
+4e. The CFG line (``bench.bench_cfg``): the 129-file rich set, files 96-127
+   through ``cli.evaluate --mode cfg_sweep`` in bf16 and in int8 (rollout
+   calibration, per-channel scales, ``conv1`` in bf16), then 9 calls of the
+   stacked-CFG sampler at B=32 each way; asserts ``quality_checked`` and
+   both MAEs within 0.02 of the committed 0.29821 and 0.29791, and the
+   exact launch counts. Then the CFG int8 forward against the CPU op by op.
+4f. The width ladder (``bench.bench_widths``): every rung of bench.py's
+   ``WIDTHS``, each evidence MAE within 0.02 of its committed value and at
+   most 0.95 × 0.44074.
 5. Timing at B=128 with CUDA events: each kernel at each path shape beside
    its plain version, ``F.conv2d`` (bf16 mode only) and its bound.
 5b. Timing at the base-96 shapes (bf16 at line 1's B=128, int8 at line 2's
    B=64: ``bench.LINE1_BATCH``, ``bench.LINE2_BATCH``) beside ``F.conv2d``
-   and the bound, and of the probe kernels beside their plain versions,
+   and the bound, of the per-channel int8 mode at the CFG net's 10 int8
+   shapes (B=64), and of the probe kernels beside their plain versions,
    ``torch.matmul``/``torch._int_mm`` and ``x[1:-1]*2``.
 
-Each path of 4-4d is driven with every launch count set to 0 just before it
+Each path of 4-4f is driven with every launch count set to 0 just before it
 and read just after; a kernel of the path that was not launched fails it.
 Then a ``{"kernels": [...]}`` line (the conv rows' times are those of the
-24x4 main path at B=128; the matmul has a row per mode, bf16 → bf16 beside
+24x4 main path at B=128, and the per-channel int8 row's those of the CFG
+net's shapes at B=64; the matmul has a row per mode, bf16 → bf16 beside
 ``torch.matmul`` and int8 → int32 beside ``torch._int_mm``; launches are
 summed over the paths), the card line
 again, and last ``{"ok": true, "device": {...}}``. Any failure raises, and
@@ -89,6 +106,10 @@ MATMUL_SHAPES = ((512, 512, 512), (8192, 2048, 2048))  # (M, K, N)
 HALO_CASES = ((256, 128, 128, 32), (250, 128, 128, 32), (37, 5, 4, 7),  # (H, W, C, TH)
               (1026, 256, 128, 32))
 RUNGS = (("16x2", 0.33557), ("12", 0.34379))  # committed evidence MAEs
+LADDER_SHAPES = ("64", "48", "32")  # the ladder's full-resolution students checked in 3d
+CFG_BF16_BLOCKS = ("conv1",)  # the quality-equal CFG recipe's bf16 block
+CFG_CHECK_BATCH = 64  # the CFG sampler's forward: 2 x 32 stacked rows
+MAE_SLACK = 0.02  # bench.py's rung slack
 # the ops of an int8 forward (``quant._forward``), looked up in the quant
 # module at call time
 QUANT_OPS = ("conv3x3_relu", "conv3x3_relu_int8", "ps_conv_transpose_2x2", "conv1x1",
@@ -117,8 +138,9 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def conv_shapes(state, body):
-    """[(name, H, Cin, Cout, mode)] of the main path's 13 3x3 convs."""
+def conv_shapes(state, body, bf16_blocks=()):
+    """[(name, H, Cin, Cout, mode)] of a model's 13 3x3 convs; ``inc`` and
+    the blocks of ``bf16_blocks`` run in bf16, the rest in int8."""
     out = []
     for key, k in state.items():
         if not key.endswith(".kernel") or k.shape[0] != 3:
@@ -126,7 +148,7 @@ def conv_shapes(state, body):
         name = key[:-len(".kernel")]
         blk = name.split(".")[0]
         out.append((name, body >> LEVEL[blk], k.shape[2], k.shape[3],
-                    "bf16" if name == "inc" else "int8"))
+                    "bf16" if name == "inc" or blk in bf16_blocks else "int8"))
     return out
 
 
@@ -195,12 +217,13 @@ def bound_ms(nbytes, ops, kind):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def conv_bound_ms(mode, B, H, Cin, Cout):
-    """Least time for one conv: each input read once, each output written once,
-    against the ops at the tensor-core peak of the mode's type."""
+def conv_bound_ms(mode, B, H, Cin, Cout, per_channel=False):
+    """Least time for one conv: each input read once (with the Cin f32
+    scales of the per-channel int8 mode), each output written once, against
+    the ops at the tensor-core peak of the mode's type."""
     wbytes = 2 if mode == "bf16" else 1
     nbytes = (B * H * H * Cin * 2 + 9 * Cin * Cout * wbytes + Cout * 4 * 2
-              + B * H * H * Cout * 2)
+              + B * H * H * Cout * 2 + (Cin * 4 if per_channel else 0))
     return bound_ms(nbytes, 2 * 9 * B * H * H * Cin * Cout, mode)
 
 
@@ -354,7 +377,7 @@ def main():
     from s1s2_torch.train.checkpoint import load_params
 
     kernels = (conv3x3_relu, conv3x3_relu_int8, fused_ddim_update, matmul, halo_rows_x2)
-    path_launches, matmul_launches = {}, {}
+    path_launches, matmul_launches, int8_launches = {}, {}, {}
 
     def drive(path, fn):
         """Run one path with every launch count set to 0 just before it; keep
@@ -362,12 +385,14 @@ def main():
         for k in kernels:
             k.launches = 0
         matmul.mode_launches = dict.fromkeys(matmul.mode_launches, 0)
+        conv3x3_relu_int8.mode_launches = dict.fromkeys(conv3x3_relu_int8.mode_launches, 0)
         out = fn()
         torch.cuda.synchronize()
         path_launches[path] = {k.__name__: k.launches for k in kernels}
         matmul_launches[path] = dict(matmul.mode_launches)
+        int8_launches[path] = dict(conv3x3_relu_int8.mode_launches)
         print(f"launches in {path}: {path_launches[path]}; matmul by mode "
-              f"{matmul_launches[path]}", flush=True)
+              f"{matmul_launches[path]}; int8 conv by scale {int8_launches[path]}", flush=True)
         return out
 
     def require(cond, what):
@@ -441,7 +466,8 @@ def main():
         require(ok, f"conv3x3 {m} kernel disagrees at {label}{name} {H}x{H} {Cin}->{Cout}")
         return key, e
 
-    def time_conv(inputs, name, B, H, Cin, Cout, m, reps, plain_reps, note=""):
+    def time_conv(inputs, name, B, H, Cin, Cout, m, reps, plain_reps, note="",
+                  per_channel=False):
         """One conv at batch B: → (kernel ms, plain ms, F.conv2d ms or None,
         bound ms, bound_by)."""
         ins = [inputs(name, B, H, Cin, Cout, m) for _ in range(2)]
@@ -460,8 +486,8 @@ def main():
             lib_ms = None
         ms = time_ms(torch, kfn, ins, reps)
         plain_ms = time_ms(torch, pfn, ins, plain_reps)
-        bound, by = conv_bound_ms(m, B, H, Cin, Cout)
-        print(f"time {m} {name} {H}x{H} {Cin}->{Cout} B={B}: kernel {ms:.4f} ms, plain "
+        bound, by = conv_bound_ms(m, B, H, Cin, Cout, per_channel)
+        print(f"time {m}{' per-channel' if per_channel else ''} {name} {H}x{H} {Cin}->{Cout} B={B}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, F.conv2d {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, "
               f"bound {bound:.4f} ms ({by}){note}", flush=True)
         del ins
@@ -557,6 +583,54 @@ def main():
         del paths
         torch.cuda.empty_cache()
 
+    # the CFG path's int8 net (the cfg_v teacher, rollout-calibrated at g=3,
+    # per-channel scales, conv1 in bf16) and its samplers, made once here
+    # outside every driven path; 4e drives the line itself
+    cfg_state = bench.cfg_state(device=dev)
+    cfg_calls = bench.make_cfg_samplers(cfg_state, device=dev)
+    cfg_qp = cfg_calls["qp"]
+    cfg_shapes = conv_shapes(cfg_state, body=SIZE, bf16_blocks=CFG_BF16_BLOCKS)
+
+    def cfg_inputs(name, B, H, Cin, Cout, mode):
+        """Per-channel int8 inputs at a CFG conv: the net's folded int8 weights,
+        deq = sw and scales; activations with each channel's range at 0.3-1.2x
+        its calibrated one (some clip at 127)."""
+        sx = cfg_qp.sx[name]
+        spread = 0.3 + 0.9 * torch.rand((Cin,), generator=gen, device=dev)
+        x = ((2 * torch.rand((B, H, H, Cin), generator=gen, device=dev) - 1)
+             * (127 * sx * spread)).to(torch.bfloat16)
+        return x, cfg_qp.w8[name][0], cfg_qp.bias[name], (sx, cfg_qp.deq[name])
+
+    with Phase("conv kernel: per-channel int8 at the CFG shapes, both modes at the ladder's"):
+        err["conv3x3_relu_int8 per_channel"] = 0.0
+        for name, H, Cin, Cout, mode in cfg_shapes:
+            if mode == "int8":
+                _, e = check_conv(cfg_inputs, name, CFG_CHECK_BATCH, H, Cin, Cout, "int8",
+                                  "cfg per-channel ")
+                err["conv3x3_relu_int8 per_channel"] = max(
+                    err["conv3x3_relu_int8 per_channel"], e)
+        torch.cuda.empty_cache()
+        # the quantizer per channel: every finite bf16 value, 32 scales at a time
+        for _ in range(10):
+            pick = torch.randint(len(mags), (32,), generator=gen, device=dev)
+            ks = torch.randint(127, (32,), generator=gen, device=dev).float() + 0.5
+            sxv = (mags[pick] / ks).contiguous()
+            same = torch.equal(conv3x3_relu_int8(xq, wq, sxv, ones, zeros, False),
+                               conv3x3_relu_int8_plain(xq, wq, sxv, ones, zeros, False))
+            require(same, f"the per-channel int8 quantizer disagrees at sx={sxv.tolist()}")
+        print("check int8 quantizer per channel: all 65280 finite bf16 values, 10 x 32 "
+              "scales near k + 1/2, bit-equal", flush=True)
+        for spec in LADDER_SHAPES:
+            st = student(spec)
+            inputs = make_inputs(st, quantize_weights(st)[0], False)
+            for name, H, Cin, Cout, mode in conv_shapes(st, body=SIZE):
+                B = 1 if H == SIZE else 2
+                for m in ("bf16", "int8") if mode == "int8" else ("bf16",):
+                    key, e = check_conv(inputs, name, B, H, Cin, Cout, m, f"{spec} ")
+                    err[key] = max(err[key], e)
+            del st, inputs
+        torch.cuda.empty_cache()
+
     with Phase("main path: run_headline('24x4')"):
         r = drive("headline 24x4", lambda: run_headline("24x4", batch=BATCH, device=dev,
                                                         size=SIZE))
@@ -587,7 +661,7 @@ def main():
         require(bool(torch.isfinite(y_dev).all()) and float(d.mean()) <= bound,
                 f"the card's {what} disagrees with the CPU plain path")
 
-    def int8_forward_check(what, qp, xin, tin):
+    def int8_forward_check(what, qp, xin, tin, n_int8=12):
         """The card's int8 forward against the CPU plain path, op by op
         (``check_ops``): every op fed the same input gives the same output, up
         to the bf16 rounding of ``inc``, the up-convs and the head. The whole
@@ -597,7 +671,7 @@ def main():
         an int8 step in every block after it."""
         e_dev, calls = record_ops(quant, qp, xin, tin)
         rows = check_ops(torch, F, quant, what, calls)
-        require(len(rows) == 20 and sum(r[0] == "conv3x3_relu_int8" for r in rows) == 12,
+        require(len(rows) == 20 and sum(r[0] == "conv3x3_relu_int8" for r in rows) == n_int8,
                 f"{what}: the int8 forward ran {[r[0] for r in rows]}")
         qpc = qp.to("cpu")
         e_cpu = quant_apply(qpc, xin.cpu(), tin.cpu())
@@ -678,6 +752,72 @@ def main():
             del rr
         torch.cuda.empty_cache()
 
+    with Phase("CFG line: cfg_sweep bf16 and int8, then the B=32 sampler"):
+        cfg_line = drive("cfg line", lambda: bench.bench_cfg(device=dev))
+        n = path_launches["cfg line"]
+        mae = {m: cfg_line[f"verified_mae_{m}"] for m in ("bf16", "int8")}
+        print(f"{cfg_line['metric']} B={cfg_line['batch']}: int8 {cfg_line['value']:.3f} "
+              f"patches/s, bf16 {cfg_line['bf16_patches_per_s']:.3f} patches/s (speedup "
+              f"{cfg_line['int8_speedup_vs_bf16']:.4f}; ms per batch "
+              f"{cfg_line['ms_per_batch']}) on {card}", flush=True)
+        print(f"cfg_sweep g=3 MAE bf16 {mae['bf16']:.6f} (committed {bench.CFG_ANCHORS['bf16']}, "
+              f"difference {mae['bf16'] - bench.CFG_ANCHORS['bf16']:+.5f}), int8 "
+              f"{mae['int8']:.6f} (committed {bench.CFG_ANCHORS['int8']}, difference "
+              f"{mae['int8'] - bench.CFG_ANCHORS['int8']:+.5f}); quality_checked="
+              f"{cfg_line['quality_checked']}", flush=True)
+        require(cfg_line["quality_checked"], f"CFG line: int8 MAE {mae['int8']} is above "
+                                             f"bf16 {mae['bf16']} + 0.002")
+        for m in ("bf16", "int8"):
+            require(abs(mae[m] - bench.CFG_ANCHORS[m]) < MAE_SLACK,
+                    f"CFG line: {m} MAE {mae[m]} is not within {MAE_SLACK} of "
+                    f"{bench.CFG_ANCHORS[m]}")
+        require(cfg_line["finite"] and cfg_line["shape"] == [bench.CFG_BATCH, SIZE, SIZE, 4],
+                f"CFG line: bad output {cfg_line['shape']} finite={cfg_line['finite']}")
+        # forwards: S steps a sampler call; the int8 net runs 3 bf16 convs (inc,
+        # conv1) and 10 int8 ones, the bf16 net 13; each rollout calibration
+        # is one bf16 CFG rollout of S forwards and 2S calibration forwards;
+        # the int8 pass's context first calibrates on q_sample states as the
+        # JAX harness does (3 timesteps, cond and null-cond: 6 forwards)
+        S = len(bench.round_unique_grid(*bench.CFG_GRID))
+        batches = -(-(bench.CFG_SET[2] - bench.CFG_SET[1]) // 8)  # cfg_sweep's batch_size 8
+        calls = 1 + bench.CFG_ITERS
+        calib = 3 * S * 13
+        expect = {"conv3x3_relu": batches * S * 13 + 6 * 13 + 2 * calib + batches * S * 3
+                  + calls * S * 13 + calls * S * 3,
+                  "conv3x3_relu_int8": batches * S * 10 + calls * S * 10,
+                  "fused_ddim_update": 0, "matmul": 0, "halo_rows_x2": 0}
+        require(n == expect, f"CFG line: launches {n}, expected {expect}")
+        require(int8_launches["cfg line"]["per_tensor"] == 0,
+                f"CFG line: per-tensor int8 launches {int8_launches['cfg line']}")
+        torch.cuda.empty_cache()
+
+    with Phase("CFG int8 forward, card against the CPU plain path, op by op"):
+        xin = torch.rand((2, SIZE, SIZE, 8), generator=gen, device=dev)
+        xin[1, ..., 4:] = 0.0  # the stacked null-cond row
+        int8_forward_check("cfg int8 forward", cfg_qp, xin,
+                           torch.tensor([999, 999], dtype=torch.int32, device=dev), n_int8=10)
+        torch.cuda.empty_cache()
+
+    with Phase("width ladder: bench_widths"):
+        ladder = drive("width ladder", lambda: bench.bench_widths(device=dev, emit=lambda _: None))
+        n = path_launches["width ladder"]
+        require([ln["metric"] for ln in ladder] == [bench.HEADLINE.format(spec)
+                                                    for spec, _, _ in bench.WIDTHS],
+                f"the ladder ran {[ln['metric'] for ln in ladder]}")
+        for ln in ladder:
+            spec = ln["metric"].split("_w")[1].split("_")[0]
+            print(f"{ln['metric']}: {ln['value']:.1f} patches/s ({ln['config']}; "
+                  f"{ln['ms_per_batch']:.4f} ms/batch) on {card}; evidence MAE "
+                  f"{ln['verified_mae']:.5f} (committed {ln['expect_mae']}, difference "
+                  f"{ln['verified_mae'] - ln['expect_mae']:+.5f})", flush=True)
+            require(abs(ln["verified_mae"] - ln["expect_mae"]) < MAE_SLACK
+                    and ln["verified_mae"] <= 0.95 * TEACHER_ANCHOR and ln["quality_checked"],
+                    f"ladder rung {spec}: evidence MAE {ln['verified_mae']} fails")
+        per_rung = path_launches["headline 24x4"]
+        require(n == {k: len(bench.WIDTHS) * v for k, v in per_rung.items()},
+                f"ladder launches {n}, expected {len(bench.WIDTHS)} x {per_rung}")
+        torch.cuda.empty_cache()
+
     with Phase("probe path: probe_int8 all"):
         probe = drive("probe", lambda: probe_int8.main(["all"]))
         n = path_launches["probe"]
@@ -732,6 +872,20 @@ def main():
                   f"{t['plain']:.3f} ms, F.conv2d {t['library']:.3f} ms, bound "
                   f"{t['bound']:.3f} ms", flush=True)
 
+        pc = dict(ms=0.0, plain=0.0, bound=0.0, bytes=0.0, operations=0.0)
+        for name, H, Cin, Cout, mode in cfg_shapes:
+            if mode == "int8":
+                ms, plain_ms, _, bound, by = time_conv(cfg_inputs, name, CFG_CHECK_BATCH, H,
+                                                       Cin, Cout, "int8", 3, 1,
+                                                       per_channel=True)
+                pc["ms"] += ms
+                pc["plain"] += plain_ms
+                pc["bound"] += bound
+                pc[by] += bound
+        print(f"time cfg 10 per-channel int8 convs of one CFG forward, B={CFG_CHECK_BATCH}: "
+              f"kernel {pc['ms']:.3f} ms, plain {pc['plain']:.3f} ms, bound {pc['bound']:.3f} ms",
+              flush=True)
+
         M, K, N = MATMUL_SHAPES[1]
         mm = {}
         for mode in ("bf16", "int8"):
@@ -774,15 +928,28 @@ def main():
                       for k in kernels}
     total_matmul = {m: sum(n[m] for n in matmul_launches.values()) for m in ("bf16", "int8")}
     src = "s1s2_torch/ops/csrc/"
-    for key, mode, replaces in (("conv3x3_relu", "bf16", "s1s2/ops/conv3x3.py:162"),
-                                ("conv3x3_relu_int8", "int8", "s1s2/ops/conv3x3.py:130")):
+    total_int8 = {m: sum(n[m] for n in int8_launches.values())
+                  for m in ("per_tensor", "per_channel")}
+    for key, mode, replaces, launches in (
+            ("conv3x3_relu", "bf16 mode", "s1s2/ops/conv3x3.py:162",
+             total_launches["conv3x3_relu"]),
+            ("conv3x3_relu_int8", "int8 mode, per-tensor sx", "s1s2/ops/conv3x3.py:130",
+             total_int8["per_tensor"])):
         t = totals[key]
-        rows.append({"name": f"conv3x3 ({mode} mode)", "route": "cuda",
+        rows.append({"name": f"conv3x3 ({mode})", "route": "cuda",
                      "source": src + "conv3x3.cu", "replaces": replaces,
-                     "launches": total_launches[key], "max_abs_err": err[key],
+                     "launches": launches, "max_abs_err": err[key],
                      "ms": t["ms"], "plain_ms": t["plain"], "bound_ms": t["bound"],
                      "bound_by": "bytes" if t["bytes"] >= t["operations"] else "operations",
-                     "library_ms": t["library"] if mode == "bf16" else None})
+                     "library_ms": t["library"] if key == "conv3x3_relu" else None})
+    rows.append({"name": f"conv3x3 (int8 mode, per-channel sx; the CFG net's 10 int8 convs, "
+                         f"B={CFG_CHECK_BATCH})", "route": "cuda",
+                 "source": src + "conv3x3.cu", "replaces": "s1s2/ops/conv3x3.py:130",
+                 "launches": total_int8["per_channel"],
+                 "max_abs_err": err["conv3x3_relu_int8 per_channel"], "ms": pc["ms"],
+                 "plain_ms": pc["plain"], "bound_ms": pc["bound"],
+                 "bound_by": "bytes" if pc["bytes"] >= pc["operations"] else "operations",
+                 "library_ms": None})
     rows.append({"name": "fused_ddim_update", "route": "cuda",
                  "source": src + "fused_elementwise.cu",
                  "replaces": "s1s2/ops/fused_elementwise.py:56",
@@ -801,8 +968,12 @@ def main():
                  "launches": total_launches["halo_rows_x2"],
                  "max_abs_err": err["halo_rows_x2"], "ms": h_ms, "plain_ms": h_plain,
                  "bound_ms": h_bound, "bound_by": h_by, "library_ms": h_lib})
-    print(f"bench lines: line 1 {line1['value']:.3f} patches/s at B={line1['batch']}, "
-          f"line 2 {line2['value']:.3f} patches/s at B={line2['batch']}", flush=True)
+    print(f"bench lines on {card}: line 1 {line1['value']:.3f} patches/s at B={line1['batch']}, "
+          f"line 2 {line2['value']:.3f} patches/s at B={line2['batch']}, CFG line int8 "
+          f"{cfg_line['value']:.3f} / bf16 {cfg_line['bf16_patches_per_s']:.3f} patches/s at "
+          f"B={cfg_line['batch']}, ladder "
+          + ", ".join(f"{ln['metric'].split('_w')[1].split('_')[0]} {ln['value']:.1f}"
+                      for ln in ladder) + " patches/s", flush=True)
     print(f"total launches by path: {path_launches}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

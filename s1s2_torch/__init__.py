@@ -2,7 +2,7 @@
 package, for one NVIDIA H100.
 
 The layout mirrors the JAX package (``core/``, ``ops/``, ``models/``,
-``sampling/``, ``eval/``, ``data/``, ``train/``). Public functions keep its
+``sampling/``, ``eval/``, ``data/``, ``train/``, ``cli/``). Public functions keep its
 NHWC activations and HWIO weights. The hot ops are hand-written CUDA kernels
 (``ops/csrc/``), built with ``nvcc`` at first use and loaded with ``ctypes``;
 each has a plain PyTorch version beside it that runs when the tensor lies on

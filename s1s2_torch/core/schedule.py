@@ -1,9 +1,9 @@
 """Diffusion beta schedules and derived tables.
 
-Port of the JAX package's ``core/schedule.py`` (the cosine schedule the
-main path uses; any betas through ``from_betas``). Tables are generated in
-float64 on the host with numpy, then stored as float32, so they are
-bit-equal to the reference tables.
+Port of the JAX package's ``core/schedule.py``: the cosine and linear
+schedules, any betas through ``from_betas`` and the ``make_schedule``
+selector. Tables are generated in float64 on the host with numpy, then
+stored as float32, so they are bit-equal to the reference tables.
 """
 
 from __future__ import annotations
@@ -23,6 +23,12 @@ def cosine_beta_schedule(T: int, s: float = 0.008) -> np.ndarray:
     alpha_bar = f / f[0]
     betas = 1.0 - (alpha_bar[1:] / alpha_bar[:-1])
     return np.clip(betas, 1e-5, 0.999).astype(np.float32)
+
+
+def linear_beta_schedule(T: int, beta_start: float = 1e-4,
+                         beta_end: float = 0.02) -> np.ndarray:
+    """Ho et al. linear schedule: a float64 linspace, stored as float32."""
+    return np.linspace(beta_start, beta_end, T, dtype=np.float64).astype(np.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +66,20 @@ class Schedule:
     def cosine(cls, T: int = 1000, s: float = 0.008) -> "Schedule":
         return cls.from_betas(cosine_beta_schedule(T, s))
 
+    @classmethod
+    def linear(cls, T: int = 1000, beta_start: float = 1e-4,
+               beta_end: float = 0.02) -> "Schedule":
+        return cls.from_betas(linear_beta_schedule(T, beta_start, beta_end))
+
     def alpha_bar_np(self) -> np.ndarray:
         """float32 numpy copy of alpha_bar for host-side coefficient math."""
         return self.alpha_bar.numpy().copy()
+
+
+def make_schedule(T: int = 1000, kind: str = "cosine", **kw) -> Schedule:
+    """Schedule selector: ``kind`` is "cosine" or "linear"."""
+    if kind == "cosine":
+        return Schedule.cosine(T, **kw)
+    if kind == "linear":
+        return Schedule.linear(T, **kw)
+    raise ValueError(f"unknown schedule kind: {kind!r} (expected cosine|linear)")

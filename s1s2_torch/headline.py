@@ -1,5 +1,6 @@
 """The main path end to end: a distilled int8 student's GT-anchored DDIM-1
-(the 24x4, or bench.py's fallbacks 16x2 and 12).
+(the 24x4, bench.py's fallbacks 16x2 and 12, or any rung of its width
+ladder).
 
 Port of the headline rung of the JAX package's benchmark (``bench.py``,
 ``rung``). In one process it
@@ -55,9 +56,12 @@ from s1s2_torch.sampling.samplers import ddim_anchored
 from s1s2_torch.train.checkpoint import load_params
 
 CKPT_DIR = Path(__file__).resolve().parents[1] / "examples" / "checkpoints"
-# committed int8 evidence MAEs (examples/results_synthetic/distill_width{spec}_metrics.jsonl;
-# "1", the base-96 student, as bench.py states it)
-EXPECT_MAE = {"24x4": 0.32764, "16x2": 0.33557, "12": 0.34379, "1": 0.36465}
+# committed int8 evidence MAEs (examples/results_synthetic/distill_width{spec}_metrics.jsonl)
+# of the headline rungs and bench.py's WIDTHS ladder; "1", the base-96
+# student, as bench.py states it
+EXPECT_MAE = {"24x4": 0.32764, "16x2": 0.33557, "12": 0.34379, "1": 0.36465,
+              "64": 0.34812, "48": 0.35026, "32": 0.34052, "24": 0.34453, "16": 0.34008,
+              "48x4": 0.33002}
 TEACHER_ANCHOR = 0.44074  # teacher ddim-20 evidence MAE
 CALIB_TVALS, CALIB_N = (200, 100, 20), 8  # calibration noise: PRNGKey(5), split per t
 NOISE_SEED = 1234  # the evidence noise: normal(PRNGKey(1234), gt.shape)

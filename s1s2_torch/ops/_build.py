@@ -159,7 +159,7 @@ class Kernels:
             "s1s2k_conv3x3_bf16": [P, P, P, P, I, I, I, I, I, I, I, P],
             # x, x8 scratch, packed w8, deq, bias, y, B, H, W, Cin, Cout, sx, relu,
             # device, stream
-            "s1s2k_conv3x3_int8": [P, P, P, P, P, P, I, I, I, I, I, F, I, I, P],
+            "s1s2k_conv3x3_int8": [P, P, P, P, P, P, I, I, I, I, I, F, P, I, I, P],
             # x, eps, x0, xn, n, s1m, sabg, sabn, s1mn, device, stream
             "s1s2k_ddim_update": [P, P, P, P, ctypes.c_int64, F, F, F, F, I, P],
             # a, b, b_t scratch (int8), c, M, N, K, mode, device, stream

@@ -9,9 +9,12 @@ hand-written CUDA kernel (``csrc/conv3x3.cu``):
 * :func:`conv3x3_relu` — bf16 in, f32 accumulation, ``acc + b``, optional
   ReLU, bf16 out.
 * :func:`conv3x3_relu_int8` — bf16 activations quantized on load,
-  ``clip(round(x / sx), -127, 127)``; int8 × int8 products summed exactly in
-  int32; ``acc·deq[co] + b[co]``, optional ReLU, bf16 out, where
-  ``deq = f32(sx)·sw`` is computed by the caller.
+  ``clip(round(x / sx), -127, 127)`` with one scale ``sx`` for the tensor
+  or a (Cin,) tensor of scales, one per input channel; int8 × int8
+  products summed exactly in int32; ``acc·deq[co] + b[co]``, optional
+  ReLU, bf16 out. The caller computes ``deq``: ``f32(sx)·sw`` for one
+  scale, ``sw`` alone when the per-channel scales were folded into the
+  weights (``models/quant.py``).
 
 On the card the int8 mode quantizes the activations in a first kernel into
 an int8 copy with the channels zero-padded to a multiple of 32 (scratch
@@ -21,7 +24,7 @@ allocated here), and reads its weights as ``(9, Cout_pad, Cin_pad)``
 Each wrapper runs its plain PyTorch version when the tensor lies on the CPU
 and launches the kernel when it lies on a CUDA device; it never falls back
 from one to the other. ``launches`` counts the wrapper calls that launched
-the kernel.
+the kernel (the int8 mode's also by scale mode, ``mode_launches``).
 """
 
 from __future__ import annotations
@@ -58,11 +61,20 @@ def conv3x3_relu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.to(x.dtype).contiguous()
 
 
-def quantize_act(x: torch.Tensor, sx: float) -> torch.Tensor:
+def _scale(sx, device) -> torch.Tensor:
+    """The activation scale as an f32 tensor on ``device``: a 0-d tensor of
+    a float, or the (Cin,) tensor of per-channel scales."""
+    if isinstance(sx, torch.Tensor):
+        return sx.to(device=device, dtype=torch.float32)
+    return torch.tensor(sx, dtype=torch.float32, device=device)
+
+
+def quantize_act(x: torch.Tensor, sx) -> torch.Tensor:
     """int8 activations ``clip(round(x / sx), -127, 127)``: a true f32
     division (by a tensor, never a host scalar, which PyTorch's CUDA path
-    would turn into a multiplication by the reciprocal) and round-half-even."""
-    q = torch.round(x.float() / torch.tensor(sx, dtype=torch.float32, device=x.device))
+    would turn into a multiplication by the reciprocal) and round-half-even.
+    ``sx`` is a float or a (Cin,) tensor broadcast over the last axis."""
+    q = torch.round(x.float() / _scale(sx, x.device))
     return q.clamp(-127, 127).to(torch.int8)
 
 
@@ -75,7 +87,7 @@ def conv3x3_int8_acc_plain(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     return acc.permute(0, 2, 3, 1).to(torch.int32)
 
 
-def conv3x3_relu_int8_plain(x: torch.Tensor, w8: torch.Tensor, sx: float,
+def conv3x3_relu_int8_plain(x: torch.Tensor, w8: torch.Tensor, sx,
                             deq: torch.Tensor, b: torch.Tensor,
                             apply_relu: bool = True) -> torch.Tensor:
     """Plain version of the int8 mode; separate PyTorch ops, so no FMA."""
@@ -154,11 +166,12 @@ def conv3x3_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 conv3x3_relu.launches = 0
 
 
-def conv3x3_relu_int8(x: torch.Tensor, w8: torch.Tensor, sx: float,
+def conv3x3_relu_int8(x: torch.Tensor, w8: torch.Tensor, sx,
                       deq: torch.Tensor, b: torch.Tensor,
                       apply_relu: bool = True) -> torch.Tensor:
-    """x (B,H,W,Cin) bf16, w8 (3,3,Cin,Cout) int8, sx the activation scale,
-    deq (Cout,) f32 = f32(sx)·sw, b (Cout,) f32 → (B,H,W,Cout) bf16."""
+    """x (B,H,W,Cin) bf16, w8 (3,3,Cin,Cout) int8, sx the activation scale
+    (a float, or a (Cin,) f32 tensor on x's device: one per input channel),
+    deq (Cout,) f32, b (Cout,) f32 → (B,H,W,Cout) bf16."""
     B, H, W, Cin, Cout = _conv_shapes(x, w8)
     if x.device.type == "cpu":
         return conv3x3_relu_int8_plain(x, w8, sx, deq, b, apply_relu)
@@ -166,17 +179,23 @@ def conv3x3_relu_int8(x: torch.Tensor, w8: torch.Tensor, sx: float,
     _check(w8, "w8", torch.int8, (3, 3, Cin, Cout), x.device)
     _check(deq, "deq", torch.float32, (Cout,), x.device)
     _check(b, "b", torch.float32, (Cout,), x.device)
+    per_channel = isinstance(sx, torch.Tensor)
+    if per_channel:
+        _check(sx, "sx", torch.float32, (Cin,), x.device)
     k = _build.kernels()
     wp = packed_int8_weight(w8)
     x8 = torch.empty((B, H, W, _round_up(Cin, K_CHUNK_I8)), dtype=torch.int8, device=x.device)
     y = torch.empty((B, H, W, Cout), dtype=torch.bfloat16, device=x.device)
     rc = k.s1s2k_conv3x3_int8(
         x.data_ptr(), x8.data_ptr(), wp.data_ptr(), deq.data_ptr(), b.data_ptr(),
-        y.data_ptr(), B, H, W, Cin, Cout, float(sx), int(apply_relu), x.device.index,
+        y.data_ptr(), B, H, W, Cin, Cout, 0.0 if per_channel else float(sx),
+        sx.data_ptr() if per_channel else None, int(apply_relu), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "conv3x3_relu_int8")
     conv3x3_relu_int8.launches += 1
+    conv3x3_relu_int8.mode_launches["per_channel" if per_channel else "per_tensor"] += 1
     return y
 
 
 conv3x3_relu_int8.launches = 0
+conv3x3_relu_int8.mode_launches = {"per_tensor": 0, "per_channel": 0}

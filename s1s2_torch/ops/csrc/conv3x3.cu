@@ -8,9 +8,10 @@
 // convolution on mma.sync, in two modes:
 //   - bf16 mode: bf16 in, HWIO bf16 weights, m16n8k16 bf16 x bf16 -> f32;
 //     epilogue acc + b, ReLU, one rounding to bf16.
-//   - int8 mode (the int8 conv of s1s2/models/quant.py:159-168): a first
+//   - int8 mode (the int8 conv of s1s2/models/quant.py:157-168): a first
 //     kernel quantizes the bf16 activations once, q = clip(rint(x / sx),
-//     -127, 127), rounded as the IEEE quotient rounds, into an int8 copy
+//     -127, 127), rounded as the IEEE quotient rounds, with one scale sx
+//     for the tensor or one per input channel, into an int8 copy
 //     whose channels are zero-padded to 32; the conv then runs m16n8k32
 //     s8 x s8 -> s32 on weights repacked once to (9, Cout_pad, Cin_pad)
 //     (ops/conv3x3.py:packed_int8_weight). The int32 sums are exact in any
@@ -142,9 +143,14 @@ __device__ __forceinline__ int quantize_act(float x, float sx, float inv) {
 
 // int8 mode, first kernel: x (P pixels, Cin) bf16 -> q (P, Cs) int8, Cs a
 // multiple of 32, channels past Cin zero. One thread per 16 output bytes.
+// PC: one scale per input channel, sxv[c] (Cin floats on the device), each
+// channel quantized with its own scale and reciprocal; else the one scale
+// sx for every channel. Pad channels read no scale.
+template <bool PC>
 __global__ void __launch_bounds__(256)
 quantize_pad_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ q,
-                    long long npix, int Cin, int Cs, float sx) {
+                    long long npix, int Cin, int Cs, float sx,
+                    const float* __restrict__ sxv) {
   const int groups = Cs / 16;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= npix * groups) return;
@@ -162,7 +168,16 @@ quantize_pad_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ q,
     for (int j = 0; j < 16; ++j)
       v[j] = c0 + j < Cin ? src[j] : __float2bfloat16_rn(0.0f);
   }
-  const float inv = __frcp_rn(sx);
+  // per tensor: one scale and one reciprocal; per channel: 16 of each
+  const float inv = PC ? 0.0f : __frcp_rn(sx);
+  float s[PC ? 16 : 1], r[PC ? 16 : 1];
+  if constexpr (PC) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      s[j] = c0 + j < Cin ? sxv[c0 + j] : 1.0f;
+      r[j] = __frcp_rn(s[j]);
+    }
+  }
   uint32_t words[4];
 #pragma unroll
   for (int w = 0; w < 4; ++w) {
@@ -170,7 +185,13 @@ quantize_pad_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = 4 * w + j;
-      const int qv = c0 + c < Cin ? quantize_act(__bfloat162float(v[c]), sx, inv) : 0;
+      int qv = 0;
+      if (c0 + c < Cin) {
+        if constexpr (PC)
+          qv = quantize_act(__bfloat162float(v[c]), s[c], r[c]);
+        else
+          qv = quantize_act(__bfloat162float(v[c]), sx, inv);
+      }
       packed |= (static_cast<uint32_t>(qv) & 0xFFu) << (8 * j);
     }
     words[w] = packed;
@@ -416,9 +437,12 @@ int s1s2k_conv3x3_bf16(const void* x, const void* w, const void* bias, void* y,
 
 // x8: scratch of B*H*W*round_up(Cin, 32) bytes; w8p: (9, round_up(Cout, 64),
 // round_up(Cin, 32)) int8, zero-padded (ops/conv3x3.py:packed_int8_weight).
+// sxv: null for the one activation scale sx, or Cin f32 scales on the
+// device, one per input channel (sx is then ignored).
 int s1s2k_conv3x3_int8(const void* x, void* x8, const void* w8p, const void* deq,
                        const void* bias, void* y, int B, int H, int W, int Cin,
-                       int Cout, float sx, int relu, int device, void* stream) {
+                       int Cout, float sx, const void* sxv, int relu, int device,
+                       void* stream) {
   if (!conv_args_ok(B, H, W, Cin, Cout)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -426,8 +450,14 @@ int s1s2k_conv3x3_int8(const void* x, void* x8, const void* w8p, const void* deq
   const int Cs = round_up(Cin, CK_I8);
   const long long npix = (long long)B * H * W;
   const long long threads = npix * (Cs / 16);
-  quantize_pad_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(x8), npix, Cin, Cs, sx);
+  const unsigned blocks = (unsigned)((threads + 255) / 256);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  int8_t* q = static_cast<int8_t*>(x8);
+  if (sxv)
+    quantize_pad_kernel<true><<<blocks, 256, 0, s>>>(xb, q, npix, Cin, Cs, 0.0f,
+                                                     static_cast<const float*>(sxv));
+  else
+    quantize_pad_kernel<false><<<blocks, 256, 0, s>>>(xb, q, npix, Cin, Cs, sx, nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   launch<true, true, true>(x8, w8p, static_cast<const float*>(deq),

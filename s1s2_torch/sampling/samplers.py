@@ -1,4 +1,4 @@
-"""Diffusion samplers (ε and v), without classifier-free guidance.
+"""Diffusion samplers (ε and v) and the classifier-free-guidance denoiser.
 
 Port of the JAX package's ``sampling/samplers.py``. Each ``lax.scan``
 becomes a Python loop over the steps, one denoiser call per step. The
@@ -44,6 +44,26 @@ def make_denoise_fn(model: Callable, cond: torch.Tensor) -> DenoiseFn:
     def fn(x_t, t):
         with torch.no_grad():
             return model(torch.cat([x_t.float(), cond], dim=-1), t)
+
+    return fn
+
+
+def make_cfg_denoise_fn(model: Callable, cond: torch.Tensor, guidance_scale: float,
+                        null_cond: Optional[torch.Tensor] = None) -> DenoiseFn:
+    """Classifier-free guidance, ``pu + g·(pc − pu)``, with the cond and
+    null-cond (zeros by default) passes stacked along the batch: one forward
+    of 2B rows a step, not two."""
+    if null_cond is None:
+        null_cond = torch.zeros_like(cond)
+    both = torch.cat([cond, null_cond], dim=0).float()
+    g = float(guidance_scale)
+
+    def fn(x_t, t):
+        x2 = torch.cat([x_t, x_t], dim=0).float()
+        with torch.no_grad():
+            pred = model(torch.cat([x2, both], dim=-1), torch.cat([t, t], dim=0))
+        pc, pu = torch.chunk(pred, 2, dim=0)
+        return pu + g * (pc - pu)
 
     return fn
 
@@ -96,17 +116,26 @@ def ddim_linspace_coefs(schedule: Schedule, t_start: int, steps: int):
 
 def _ddim_linspace_scan(denoise_fn: DenoiseFn, x_init: torch.Tensor,
                         schedule: Schedule, t_start: int, steps: int,
-                        clip: Tuple[float, float]) -> torch.Tensor:
+                        clip: Tuple[float, float], return_traj: bool = False):
     """Iterate (t_cur → t_next) along the linspace grid and return the LAST
-    x0̂ (not x_t), clamped."""
+    x0̂ (not x_t), clamped; with ``return_traj=True`` the pair ``(x0̂, (ts,
+    traj))`` of the int32 timesteps and the x_t states the denoiser saw
+    (step-major), for rollout calibration."""
     ts, s1m, sabg, sabn, s1mn = ddim_linspace_coefs(schedule, t_start, steps)
     B = x_init.shape[0]
     x, x0_hat = x_init, x_init
+    traj = []
     for i in range(len(ts) - 1):
+        if return_traj:
+            traj.append(x)
         eps = denoise_fn(x, _t_vec(ts[i], B, x.device)).float().contiguous()
         x0_hat, x = fused_ddim_update(x, eps, float(s1m[i]), float(sabg[i]),
                                       float(sabn[i]), float(s1mn[i]))
-    return torch.clamp(x0_hat, clip[0], clip[1])
+    out = torch.clamp(x0_hat, clip[0], clip[1])
+    if return_traj:
+        t_steps = torch.as_tensor(ts[:-1].astype(np.int32), device=out.device)
+        return out, (t_steps, torch.stack(traj))
+    return out
 
 
 def ddim_anchored(denoise_fn: DenoiseFn, x_gt: torch.Tensor, schedule: Schedule,

@@ -1,6 +1,6 @@
 """Where the time of a path goes on the card.
 
-    python -m s1s2_torch.trace_headline [--path headline|line1|line2|probe]
+    python -m s1s2_torch.trace_headline [--path headline|line1|line2|cfg|probe]
                                         [--steps N] [--trace out.json]
 
 ``headline`` (the default) prepares the main path as
@@ -10,7 +10,10 @@ int8), then runs 10 DDIM-1 batches of its timed inputs ``data(128, 7)``.
 on the full-width base-96 UNet: bf16 GT-anchored DDIM at B=128 (``--steps``
 steps from t=999, default 2: every step is one forward and one update, as
 in the bench's 50) and int8 DPM-Solver++(2M)-5 at B=64, one untimed call,
-then 2 profiled calls. Under ``torch.profiler`` it prints, per call: the
+then 2 profiled calls. ``cfg`` is the CFG line's int8 call (the cfg_v
+teacher, rollout-calibrated, per-channel scales, ``conv1`` in bf16; the
+5-step stacked-CFG sampler at B=32, a 64-row forward a step), one untimed
+call, then 2 profiled calls. Under ``torch.profiler`` it prints, per call: the
 wall time on CUDA events, the device time of each kernel (the hand-written
 ones and PyTorch's own), and the device's idle share (1 − summed kernel
 time / wall time). With ``--trace`` it also writes the Chrome trace.
@@ -99,6 +102,14 @@ def breakdown(trace: str = "") -> Dict:
     return {"path": "headline", "batch": BATCH, **profile(step, ITERS, 3, trace)}
 
 
+def breakdown_cfg(trace: str = "") -> Dict:
+    """The CFG line's int8 sampler call at B=32 on the cfg_v teacher."""
+    if not torch.cuda.is_available():
+        raise SystemExit("trace_headline needs a CUDA card")
+    calls = bench.make_cfg_samplers(bench.cfg_state(device="cuda"), bench.CFG_BATCH)
+    return {"path": "cfg", "batch": bench.CFG_BATCH, **profile(calls["int8"], 2, 1, trace)}
+
+
 def breakdown_bench(line: int, steps: int = 2, trace: str = "") -> Dict:
     """Bench line 1 (bf16 DDIM, B=128, ``steps`` steps) or 2 (int8
     DPM-Solver++(2M)-5, B=64) on the base-96 UNet."""
@@ -171,14 +182,14 @@ def breakdown_probe() -> List[Dict]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("headline", "line1", "line2", "probe"),
+    ap.add_argument("--path", choices=("headline", "line1", "line2", "cfg", "probe"),
                     default="headline")
     ap.add_argument("--steps", type=int, default=2, help="line 1's DDIM steps")
     ap.add_argument("--trace", default="", help="write the Chrome trace here (not probe)")
     args = ap.parse_args(argv)
     if args.path == "probe":
         if args.trace:
-            raise SystemExit("--trace is for headline, line1 and line2")
+            raise SystemExit("--trace is for headline, line1, line2 and cfg")
         rows = breakdown_probe()
         print(torch.cuda.get_device_name(0))
         for r in rows:
@@ -189,8 +200,12 @@ def main(argv=None) -> int:
                 print(f"  {k['ms']:9.4f} ms {k['calls']:6.1f}x {k['name'][:100]}")
             print(json.dumps({k: v for k, v in r.items() if k != "kernels"}))
         return 0
-    r = (breakdown(args.trace) if args.path == "headline"
-         else breakdown_bench(int(args.path[-1]), args.steps, args.trace))
+    if args.path == "headline":
+        r = breakdown(args.trace)
+    elif args.path == "cfg":
+        r = breakdown_cfg(args.trace)
+    else:
+        r = breakdown_bench(int(args.path[-1]), args.steps, args.trace)
     print(f"{r['device']} {r['path']} B={r['batch']}: wall {r['wall_ms']:.4f} ms/iter, "
           f"kernels {r['kernel_ms']:.4f} ms/iter (hand-written {r['ours_ms']:.4f}), "
           f"idle share {r['idle_share']:.3f}")

@@ -1,5 +1,5 @@
-"""Read the JAX package's msgpack checkpoints without msgpack, flax or
-ml_dtypes.
+"""Read and write the JAX package's msgpack checkpoints without msgpack,
+flax or ml_dtypes.
 
 The committed checkpoints are ``flax.serialization.msgpack_serialize`` blobs:
 a msgpack map of maps whose leaves are msgpack *ext* values. Ext code 1 holds
@@ -10,14 +10,19 @@ above 2^30 bytes, occur in no checkpoint of the repo and are refused.
 
 This module decodes all of that in pure Python and returns torch tensors
 (bfloat16 stays bfloat16, read with ``torch.frombuffer``), so weights load
-on a machine that has torch and numpy and nothing of JAX.
+on a machine that has torch and numpy and nothing of JAX. Its writer,
+:func:`msgpack_serialize`, gives the bytes ``flax.serialization.
+msgpack_serialize`` gives for the same tree: torch tensors and numpy arrays
+as ext 1, numpy scalars as ext 3, nested dicts and lists, Python scalars
+and strings in msgpack's smallest form.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
+import numpy as np
 import torch
 
 _DTYPES = {
@@ -117,6 +122,126 @@ def unpackb(data: bytes) -> Any:
     if r.pos != len(data):
         raise ValueError(f"{len(data) - r.pos} trailing bytes after msgpack object")
     return out
+
+
+def _pack_len(out: List[bytes], n: int, fix: int, fix_max: int, codes) -> None:
+    """A length header: the fix form when ``n <= fix_max``, else the first
+    of ``codes`` ((byte, struct format) of the 8/16/32-bit forms) that holds
+    ``n``."""
+    if fix is not None and n <= fix_max:
+        out.append(bytes([fix | n]))
+        return
+    for code, fmt, top in codes:
+        if n <= top:
+            out.append(struct.pack(">B" + fmt, code, n))
+            return
+    raise ValueError(f"msgpack object of length {n} is too long")
+
+
+_B8, _B16, _B32 = (0xFF, 0xFFFF, 0xFFFFFFFF)
+
+
+def _pack(obj: Any, out: List[bytes]) -> None:
+    if obj is None:
+        out.append(b"\xc0")
+    elif obj is True or obj is False:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, int) and not isinstance(obj, bool) and type(obj) is int:
+        if 0 <= obj <= 0x7F or -32 <= obj < 0:
+            out.append(struct.pack(">b" if obj < 0 else ">B", obj))
+        elif obj > 0:
+            for code, fmt, top in ((0xCC, "B", _B8), (0xCD, "H", _B16), (0xCE, "I", _B32),
+                                   (0xCF, "Q", (1 << 64) - 1)):
+                if obj <= top:
+                    out.append(struct.pack(">B" + fmt, code, obj))
+                    break
+            else:
+                raise ValueError(f"integer {obj} does not fit msgpack")
+        else:
+            for code, fmt, lo in ((0xD0, "b", -(1 << 7)), (0xD1, "h", -(1 << 15)),
+                                  (0xD2, "i", -(1 << 31)), (0xD3, "q", -(1 << 63))):
+                if obj >= lo:
+                    out.append(struct.pack(">B" + fmt, code, obj))
+                    break
+            else:
+                raise ValueError(f"integer {obj} does not fit msgpack")
+    elif type(obj) is float:
+        out.append(struct.pack(">Bd", 0xCB, obj))
+    elif type(obj) is str:
+        raw = obj.encode("utf-8")
+        _pack_len(out, len(raw), 0xA0, 31, ((0xD9, "B", _B8), (0xDA, "H", _B16),
+                                            (0xDB, "I", _B32)))
+        out.append(raw)
+    elif type(obj) is bytes:
+        _pack_len(out, len(obj), None, 0, ((0xC4, "B", _B8), (0xC5, "H", _B16),
+                                           (0xC6, "I", _B32)))
+        out.append(obj)
+    elif type(obj) in (list, tuple):
+        _pack_len(out, len(obj), 0x90, 15, ((0xDC, "H", _B16), (0xDD, "I", _B32)))
+        for v in obj:
+            _pack(v, out)
+    elif type(obj) is dict:
+        _pack_len(out, len(obj), 0x80, 15, ((0xDE, "H", _B16), (0xDF, "I", _B32)))
+        for k, v in obj.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (torch.Tensor, np.ndarray)):
+        _pack_ext(_EXT_NDARRAY, _array_parts(obj), out)
+    elif isinstance(obj, np.generic):
+        _pack_ext(_EXT_NPSCALAR, _array_parts(np.asarray(obj)), out)
+    else:
+        raise TypeError(f"cannot serialize {type(obj).__name__}")
+
+
+def _array_parts(a) -> bytes:
+    """An ndarray's ext payload: the msgpack array [shape, dtype name, raw
+    C-order bytes]."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().cpu().contiguous()
+        name = str(t.dtype).replace("torch.", "")
+        if name not in _DTYPES:
+            raise ValueError(f"unsupported tensor dtype {t.dtype}")
+        shape = tuple(t.shape)
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+    else:
+        if a.dtype.hasobject or a.dtype.name not in _DTYPES:
+            raise ValueError(f"unsupported array dtype {a.dtype}")
+        name, shape, raw = a.dtype.name, a.shape, a.tobytes("C")
+    return packb([list(shape), name, raw])
+
+
+def _pack_ext(code: int, data: bytes, out: List[bytes]) -> None:
+    n = len(data)
+    fix = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(n)
+    if fix is not None:
+        out.append(struct.pack(">Bb", fix, code))
+    else:
+        _pack_len(out, n, None, 0, ((0xC7, "B", _B8), (0xC8, "H", _B16), (0xC9, "I", _B32)))
+        out.append(struct.pack(">b", code))
+    out.append(data)
+
+
+def packb(obj: Any) -> bytes:
+    """Encode ``obj`` as msgpack, each value in its smallest form."""
+    out: List[bytes] = []
+    _pack(obj, out)
+    return b"".join(out)
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """flax's ``msgpack_serialize`` of a tree of dicts whose leaves are
+    tensors, numpy arrays or scalars, Python scalars or strings: each dict's
+    keys sorted (flax maps the tree through ``jax.tree_util`` first, which
+    sorts them). Arrays above 2^30 bytes, which flax would split into
+    chunks, are refused."""
+    def canon(t):
+        if isinstance(t, dict):
+            return {k: canon(t[k]) for k in sorted(t)}
+        if isinstance(t, torch.Tensor) and t.numel() * t.element_size() > 1 << 30 or (
+                isinstance(t, np.ndarray) and t.nbytes > 1 << 30):
+            raise ValueError("arrays above 2^30 bytes are not supported")
+        return t
+    return packb(canon(tree))
 
 
 def _tensor_from_parts(shape, dtype_name, raw: bytes) -> torch.Tensor:

@@ -119,3 +119,57 @@ def test_load_params_24x4():
     assert len(flat) == 34
     assert all(v.dtype == torch.bfloat16 for v in flat.values())
     assert tuple(tree["inc"]["kernel"].shape) == (3, 3, 129, 24)
+
+
+@pytest.mark.parametrize("obj", [
+    None, True, False, 0, 127, 128, 255, 256, 65535, 65536, 2**32 - 1, 2**32, 2**64 - 1,
+    -1, -32, -33, -128, -129, -32768, -32769, -2**31, -2**31 - 1, -2**63,
+    1.5, -2.25e-300, "", "a" * 31, "é" * 40, "x" * 300, "y" * 70000,
+    b"", b"\x00\xff" * 200, b"z" * 70000,
+    [], list(range(20)), {"k": [1, {"n": None}]}, {str(i): i for i in range(20)},
+    list(range(70000)), {str(i): [i] for i in range(70000)},
+])
+def test_writer_matches_msgpack(obj):
+    assert ck.packb(obj) == msgpack.packb(obj, use_bin_type=True)
+
+
+def test_writer_matches_flax_on_a_quant_like_tree():
+    """flax's bytes for the same tree, keys sorted as flax sorts them:
+    float32, int8, bfloat16 (torch) and 0-d arrays, empty arrays, ext 8/16/32
+    lengths, numpy scalars."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(0)
+    bf = np.asarray(rng.standard_normal((3, 5)), ml_dtypes.bfloat16)
+    tree = {"w8": {"down1/conv1": {"q": rng.integers(-127, 128, (3, 3, 4, 5)).astype(np.int8),
+                                   "s": rng.random(5).astype(np.float32)}},
+            "act_scale": {"up3": np.asarray(0.25, np.float32), "b": rng.random(7).astype(np.float32)},
+            "meta": {"out_ch": np.int32(4), "act_perchannel": np.int32(1)},
+            "z": {"e": np.zeros((0, 3), np.float32), "big": np.ones(20000, np.float32),
+                  "one": np.ones(1, np.int8), "two": np.ones(2, np.int8)},
+            "bf": bf, "py": 1.5, "n": 3}
+    ref = serialization.msgpack_serialize(tree)
+    port = dict(tree, bf=torch.from_numpy(bf.view(np.uint16).copy()).view(torch.bfloat16))
+    port["w8"] = {"down1/conv1": {k: torch.from_numpy(v) for k, v in
+                                  tree["w8"]["down1/conv1"].items()}}
+    assert ck.msgpack_serialize(port) == ref
+    assert ck.msgpack_serialize(tree) == ref
+    back = ck.msgpack_restore(ref)
+    assert back["meta"] == {"act_perchannel": 1, "out_ch": 4}
+    assert back["act_scale"]["up3"].dim() == 0 and float(back["act_scale"]["up3"]) == 0.25
+
+
+def test_writer_round_trips_a_checkpoint():
+    """A committed checkpoint read by the port and written back gives flax's
+    bytes of the same tree."""
+    path = os.path.join(REPO, "examples", "checkpoints", "distill_eps_student24x4.bf16.msgpack")
+    with open(path, "rb") as f:
+        data = f.read()
+    assert ck.msgpack_serialize(ck.msgpack_restore(data)) == \
+        serialization.msgpack_serialize(serialization.msgpack_restore(data))
+
+
+@pytest.mark.parametrize("bad", [{"c": 1.0 + 2.0j}, {"s": {1, 2}}, {"u": np.zeros(2, np.uint32)}])
+def test_writer_refuses_what_it_cannot_write(bad):
+    with pytest.raises((TypeError, ValueError)):
+        ck.msgpack_serialize(bad)

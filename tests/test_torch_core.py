@@ -33,6 +33,27 @@ def test_schedule_tables_bit_equal(kind, T):
     np.testing.assert_array_equal(got.alpha_bar_np(), ref.alpha_bar_np())
 
 
+@pytest.mark.parametrize("T,start,end", [(1000, 1e-4, 0.02), (37, 1e-3, 0.05), (1, 1e-4, 0.02)])
+def test_linear_schedule_bit_equal(T, start, end):
+    """The linear betas (a float64 linspace stored as float32) and every
+    table of ``Schedule.linear``: bit-equal, the cumulative product taken in
+    float64 as the JAX package takes it."""
+    np.testing.assert_array_equal(tsched.linear_beta_schedule(T, start, end),
+                                  jsched.linear_beta_schedule(T, start, end))
+    ref, got = jsched.Schedule.linear(T, start, end), tsched.Schedule.linear(T, start, end)
+    for name in TABLES:
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name)),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["cosine", "linear"])
+def test_make_schedule_selects_like_jax(kind):
+    ref, got = jsched.make_schedule(100, kind), tsched.make_schedule(100, kind)
+    np.testing.assert_array_equal(got.alpha_bar_np(), ref.alpha_bar_np())
+    with pytest.raises(ValueError, match="unknown schedule kind"):
+        tsched.make_schedule(100, "sigmoid")
+
+
 @pytest.mark.parametrize("T,s", [(1000, 0.008), (50, 0.02)])
 def test_cosine_betas_bit_equal(T, s):
     np.testing.assert_array_equal(tsched.cosine_beta_schedule(T, s),

@@ -81,6 +81,61 @@ def test_gpu_int8_quantizer_is_the_ieee_division(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,Ci,Co", [(2, 64, 64, 24, 48), (3, 17, 9, 5, 40),
+                                         # the CFG net's int8 convs (Cin 96..768), at B=2
+                                         (2, 256, 256, 96, 192), (2, 64, 64, 768, 384),
+                                         (1, 8, 8, 200, 70), (2, 32, 32, 12, 12)])
+def test_gpu_conv_int8_per_channel_bit_equal(cuda, B, H, W, Ci, Co):
+    """One activation scale per input channel, spread over four decades, the
+    folded weights' deq = sw alone; pad channels (Ci not a multiple of 32)
+    read no scale."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    sx = (10.0 ** (4 * torch.rand((Ci,), generator=g, device=cuda) - 3)) / 127.0
+    x = ((2 * torch.rand((B, H, W, Ci), generator=g, device=cuda) - 1) * 140 * sx
+         ).to(torch.bfloat16)
+    w8 = torch.randint(-127, 128, (3, 3, Ci, Co), generator=g, device=cuda).to(torch.int8)
+    deq = torch.rand((Co,), generator=g, device=cuda) * 1e-3
+    b = torch.randn((Co,), generator=g, device=cuda)
+    for relu in (True, False):
+        assert torch.equal(conv3x3_relu_int8(x, w8, sx, deq, b, relu),
+                           conv3x3_relu_int8_plain(x, w8, sx, deq, b, relu))
+
+
+@pytest.mark.gpu
+def test_gpu_int8_quantizer_per_channel_is_the_ieee_division(cuda):
+    """Every finite bf16 value with 32 scales at a time, each putting its
+    channel's quotients near a half-integer: bit-equal to the plain
+    version's true division per channel."""
+    x = (torch.arange(1 << 16, dtype=torch.int32) << 16).view(torch.float32)
+    x = x[torch.isfinite(x)].to(torch.bfloat16).reshape(1, 51, 40, 32).to(cuda)
+    w8 = torch.zeros((3, 3, 32, 32), dtype=torch.int8, device=cuda)
+    w8[1, 1] = torch.eye(32, dtype=torch.int8, device=cuda)
+    deq, b = torch.ones(32, device=cuda), torch.zeros(32, device=cuda)
+    g = torch.Generator().manual_seed(1)
+    xs = x.flatten().float().cpu()
+    xs = xs[(xs.abs() > 1e-3) & (xs.abs() < 1e3)]
+    for _ in range(10):
+        x0 = xs[torch.randint(len(xs), (32,), generator=g)].abs()
+        sx = (x0 / (torch.randint(127, (32,), generator=g).float() + 0.5)).to(cuda)
+        assert torch.equal(conv3x3_relu_int8(x, w8, sx, deq, b, False),
+                           conv3x3_relu_int8_plain(x, w8, sx, deq, b, False))
+
+
+@pytest.mark.gpu
+def test_gpu_int8_per_tensor_scale_as_one_vector_is_the_same_conv(cuda):
+    """A per-channel vector of one repeated scale gives the per-tensor result."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((2, 32, 32, 40), generator=g, device=cuda).to(torch.bfloat16)
+    w8 = torch.randint(-127, 128, (3, 3, 40, 24), generator=g, device=cuda).to(torch.int8)
+    sx = float(x.float().abs().amax()) / 127.0
+    deq = torch.rand((24,), generator=g, device=cuda) * 1e-3
+    b = torch.randn((24,), generator=g, device=cuda)
+    vec = torch.full((40,), sx, dtype=torch.float32, device=cuda)
+    assert torch.equal(conv3x3_relu_int8(x, w8, vec, deq, b),
+                       conv3x3_relu_int8(x, w8, sx, deq, b))
+
+
+@pytest.mark.gpu
 def test_gpu_ddim_kernel_matches_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn((4, 64, 64, 4), generator=g, device=cuda)

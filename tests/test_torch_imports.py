@@ -39,7 +39,7 @@ def test_no_blocked_import_in_source(path):
 
 
 def test_port_has_the_mirrored_layout():
-    for sub in ("core", "ops", "models", "sampling", "eval", "data", "train"):
+    for sub in ("core", "ops", "models", "sampling", "eval", "data", "train", "cli"):
         assert (REPO / "s1s2_torch" / sub / "__init__.py").is_file(), sub
 
 
@@ -81,10 +81,24 @@ SCRIPT = textwrap.dedent("""
     halo_rows_x2(torch.zeros((5, 2, 4)), 2)
     matmul(torch.zeros((128, 64), dtype=torch.int8), torch.zeros((64, 128), dtype=torch.int8),
            torch.int32)
+    # the CFG line through the evaluate CLI and the harness, and the int8
+    # artifact through the port's own msgpack writer and reader
+    import tempfile
+    from s1s2_torch.bench import bench_cfg, make_cfg_samplers, cfg_state
+    from s1s2_torch.models.quant import load_quant, save_quant
+    cfg = bench_cfg(ckpt="@random", batch=1, iters=1, size=16, base_ch=8, cfg_set=(3, 1, 3),
+                    device="cpu")
+    qp = make_cfg_samplers(cfg_state("@random", 8), batch=1, size=16, base_ch=8,
+                           device="cpu")["qp"]
+    with tempfile.TemporaryDirectory() as td:
+        save_quant(qp, td + "/q.msgpack")
+        back = load_quant(td + "/q.msgpack")
     loaded = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
     print(json.dumps({{"modules": mods, "shape": list(y.shape),
                       "finite": bool(torch.isfinite(y).all()), "loaded": loaded,
-                      "dpm_shape": r["shape"], "dpm_finite": r["finite"]}}))
+                      "dpm_shape": r["shape"], "dpm_finite": r["finite"],
+                      "cfg_checked": cfg["quality_checked"] in (True, False),
+                      "cfg_shape": cfg["shape"], "int8_convs": len(back.w8)}}))
 """)
 
 
@@ -100,8 +114,11 @@ def test_port_runs_with_jax_flax_msgpack_ml_dtypes_and_s1s2_blocked():
     assert {"s1s2_torch.headline", "s1s2_torch.ops.conv3x3", "s1s2_torch.models.quant",
             "s1s2_torch.train.checkpoint", "s1s2_torch.sampling.samplers",
             "s1s2_torch.sampling.dpm_solver", "s1s2_torch.ops.matmul", "s1s2_torch.ops.halo",
-            "s1s2_torch.bench", "s1s2_torch.tools.probe_int8"} <= set(out["modules"])
+            "s1s2_torch.bench", "s1s2_torch.tools.probe_int8", "s1s2_torch.eval.harness",
+            "s1s2_torch.data.loader", "s1s2_torch.cli.evaluate",
+            "s1s2_torch.cli.quantize"} <= set(out["modules"])
     assert out["dpm_shape"] == [1, 16, 16, 4] and out["dpm_finite"]
+    assert out["cfg_checked"] and out["cfg_shape"] == [1, 16, 16, 4] and out["int8_convs"] == 10
 
 
 def test_blocker_really_blocks():

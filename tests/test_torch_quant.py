@@ -150,11 +150,17 @@ def test_seeded_calibration_is_deterministic():
     assert [int(x[1][0]) for x in a] == list(TVALS)
 
 
-@pytest.mark.parametrize("kw", [{"quant_up": True}, {"act_perchannel": True},
-                                {"bf16_blocks": ("conv1",)}])
+@pytest.mark.parametrize("kw", [{"quant_up": True},
+                                {"quant_up": True, "act_perchannel": True},
+                                {"quant_up": True, "bf16_blocks": ("conv1",)}])
 def test_options_not_ported_yet_raise(case, kw):
-    with pytest.raises(NotImplementedError):
+    """quant_up (int8 transposed convs) is the one option not ported: it
+    raises with any other option beside it, in both entry points."""
+    with pytest.raises(NotImplementedError, match="quant_up"):
         tq.quantize_unet(case["state"], case["tcal"][:1], base_ch=24, stem_s2d=4, **kw)
+    with pytest.raises(NotImplementedError, match="quant_up"):
+        tq.quantize_weights(case["state"], quant_up=True,
+                            bf16_blocks=kw.get("bf16_blocks", ()))
 
 
 def test_quant_params_copy_to_a_device_is_the_same_model(case):
