@@ -38,6 +38,12 @@ Phases, each printing its own seconds:
    and its quantizer on every finite bf16 value with 32 scales at a time
    near k + 1/2; then both modes (per tensor) at the full-resolution shapes
    of the ladder's base-64, 48 and 32 students, inc to conv1.conv2.
+3e. The kernels at the crossval nets' shapes (the base-16 ``.pth`` nets of
+   ``examples/ref_crossval`` at 32², their own weights): the conv in both
+   modes from 32×32 down to 8×8 (narrower than its 8×16-pixel tile) and
+   Cout 16 and 32 (below its 64-channel tile), at B=8 and 2 (ε net) and 4
+   (v net), and the DDIM update on a padded batch, with phase 3's
+   tolerances.
 4. Main path: ``run_headline("24x4")`` — checkpoint through the port's own
    reader, 32-file evidence set, calibration (``PRNGKey(5)``), int8
    quantization, GT-anchored DDIM-1 on ``normal(PRNGKey(1234))``, masked
@@ -67,6 +73,29 @@ Phases, each printing its own seconds:
 4f. The width ladder (``bench.bench_widths``): every rung of bench.py's
    ``WIDTHS``, each evidence MAE within 0.02 of its committed value and at
    most 0.95 × 0.44074.
+4g. The reference crossval (``s1s2_torch.tools.ref_crossval``): the 27
+   committed reference tables replayed in bf16 on the card and again on the
+   CPU plain path. Both must pass within the tool's tolerances (its f32
+   per-column ones; each prediction array by its mean |Δ|), and the card's
+   tables must equal the CPU's within the same tolerances: the two differ
+   only where the conv kernel's f32 sums, taken in another order than
+   ``F.conv2d``'s, round a bf16 output to the other side, a subset of the
+   roundings that separate either run from f32, which the CPU run shows
+   stays inside them. Each table's largest deviation is printed, as a
+   share of its tolerance, for all three comparisons.
+4h. Full width: ``cli.evaluate`` with its defaults (previews on) on the
+   32-file 256² evidence set and the base-96 teachers: ``ddim`` (t_start
+   200, 20 steps) on the ε teacher, its MAE within 0.02 of the committed
+   ddim-20 anchor 0.44074; the same on the v teacher and under ``--int8``
+   on the ε teacher (MAEs printed beside the anchors); ``per_band``,
+   ``eps``, ``vdiag`` and ``onestep`` once each, finite, their files
+   written; exact launch counts; each mode's seconds and patches/s. The
+   anchors were drawn with ``tools/bench_distill.py``'s protocol (one batch
+   key ``PRNGKey(1234)``, and for v the GT-anchored init on the
+   round-unique grid), which the port's samplers then run directly: both
+   within 0.02 of their anchors. The harness's v ``ddim`` is the reference
+   v script's pure-noise generation from ``noise·√(1−ᾱ)``, another
+   protocol; its MAE is printed beside the anchor, not held to it.
 5. Timing at B=128 with CUDA events: each kernel at each path shape beside
    its plain version, ``F.conv2d`` (bf16 mode only) and its bound.
 5b. Timing at the base-96 shapes (bf16 at line 1's B=128, int8 at line 2's
@@ -75,7 +104,7 @@ Phases, each printing its own seconds:
    shapes (B=64), and of the probe kernels beside their plain versions,
    ``torch.matmul``/``torch._int_mm`` and ``x[1:-1]*2``.
 
-Each path of 4-4f is driven with every launch count set to 0 just before it
+Each path of 4-4h is driven with every launch count set to 0 just before it
 and read just after; a kernel of the path that was not launched fails it.
 Then a ``{"kernels": [...]}`` line (the conv rows' times are those of the
 24x4 main path at B=128, and the per-channel int8 row's those of the CFG
@@ -88,10 +117,14 @@ on the probe's operands or ``torch._int_mm``; they are timed here only as
 yardsticks.
 """
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # dense tensor-core peaks; f32 outside the tensor cores
@@ -110,6 +143,12 @@ LADDER_SHAPES = ("64", "48", "32")  # the ladder's full-resolution students chec
 CFG_BF16_BLOCKS = ("conv1",)  # the quality-equal CFG recipe's bf16 block
 CFG_CHECK_BATCH = 64  # the CFG sampler's forward: 2 x 32 stacked rows
 MAE_SLACK = 0.02  # bench.py's rung slack
+# 3e: (net, batch) of the crossval nets' shape checks
+CROSSVAL_CHECKS = (("eps", 8), ("eps", 2), ("v", 4))
+# 4h: the committed ddim-20 anchors of the base-96 teachers
+# (examples/checkpoints/README.md), the evidence set and the teacher files
+TEACHER_ANCHORS = {"eps": 0.44074, "v": 0.30411}
+FULL_FILES, FULL_BATCH, FULL_STEPS = 32, 8, 20  # the CLI's default batch
 # the ops of an int8 forward (``quant._forward``), looked up in the quant
 # module at call time
 QUANT_OPS = ("conv3x3_relu", "conv3x3_relu_int8", "ps_conv_transpose_2x2", "conv1x1",
@@ -360,7 +399,7 @@ def main():
 
     from s1s2_torch import bench
     from s1s2_torch.core.schedule import Schedule
-    from s1s2_torch.headline import CKPT_DIR, run_headline
+    from s1s2_torch.headline import CKPT_DIR, evidence_set, run_headline
     from s1s2_torch.models import quant
     from s1s2_torch.models.quant import (make_sampler_calib, quant_apply, quantize_unet,
                                          quantize_weights)
@@ -373,7 +412,7 @@ def main():
                                                   fused_ddim_update)
     from s1s2_torch.ops.halo import halo_rows_x2, halo_rows_x2_plain
     from s1s2_torch.ops.matmul import matmul, matmul_plain
-    from s1s2_torch.tools import probe_int8
+    from s1s2_torch.tools import probe_int8, ref_crossval
     from s1s2_torch.train.checkpoint import load_params
 
     kernels = (conv3x3_relu, conv3x3_relu_int8, fused_ddim_update, matmul, halo_rows_x2)
@@ -631,6 +670,31 @@ def main():
             del st, inputs
         torch.cuda.empty_cache()
 
+    with Phase("kernels at the crossval nets' shapes (base 16, 32x32 down to 8x8)"):
+        for net, B in CROSSVAL_CHECKS:
+            st = {k: v.to(dev) for k, v in params_from_numpy(load_params(
+                str(ref_crossval.REF_DIR / f"ref_{net}_model.pth"))).items()}
+            inputs = make_inputs(st, quantize_weights(st)[0], False)
+            for name, H, Cin, Cout, mode in conv_shapes(st, body=ref_crossval.SIZE):
+                for m in ("bf16", "int8") if mode == "int8" else ("bf16",):
+                    key, e = check_conv(inputs, name, B, H, Cin, Cout, m, f"crossval {net} ")
+                    err[key] = max(err[key], e)
+        # the harness's padded last batch: its last rows repeat a file
+        xd = torch.randn((4, ref_crossval.SIZE, ref_crossval.SIZE, 4), generator=gen, device=dev)
+        ed = torch.randn(xd.shape, generator=gen, device=dev)
+        xd[2:], ed[2:] = xd[1].clone(), ed[1].clone()
+        got = fused_ddim_update(xd, ed, s1m, sabg, sabn, s1mn)
+        ref = ddim_update_plain(xd, ed, s1m, sabg, sabn, s1mn)
+        rel = max(float(((g - r).abs() / r.abs().clamp_min(1e-30)).max()) for g, r in zip(got, ref))
+        same = all(torch.equal(g[3], g[1]) and torch.equal(g[2], g[1]) for g in got)
+        err["fused_ddim_update"] = max(err["fused_ddim_update"],
+                                       max(float((g - r).abs().max()) for g, r in zip(got, ref)))
+        print(f"check ddim_update padded batch {tuple(xd.shape)} max_rel_err={rel:.3g} padded rows "
+              f"equal={same} {'ok' if rel <= 1e-6 and same else 'FAIL'}", flush=True)
+        require(rel <= 1e-6 and same, "fused_ddim_update disagrees on a padded batch")
+        del xd, ed, got, ref
+        torch.cuda.empty_cache()
+
     with Phase("main path: run_headline('24x4')"):
         r = drive("headline 24x4", lambda: run_headline("24x4", batch=BATCH, device=dev,
                                                         size=SIZE))
@@ -816,6 +880,149 @@ def main():
         per_rung = path_launches["headline 24x4"]
         require(n == {k: len(bench.WIDTHS) * v for k, v in per_rung.items()},
                 f"ladder launches {n}, expected {len(bench.WIDTHS)} x {per_rung}")
+        torch.cuda.empty_cache()
+
+    def quiet(fn):
+        """``fn`` with its standard output (the evaluate CLI's result lines)
+        dropped."""
+        def run():
+            with contextlib.redirect_stdout(io.StringIO()):
+                return fn()
+        return run
+
+    def worst_col(table):
+        """(column, max |Δ|, share of its tolerance) of a report table's
+        worst column."""
+        cols = table["cols"]
+        col = max(cols, key=lambda c: cols[c]["max_dev"] / cols[c]["tol"])
+        return col, cols[col]["max_dev"], cols[col]["max_dev"] / cols[col]["tol"]
+
+    with Phase("crossval: ref_crossval in bf16 on the card and on the CPU plain path"):
+        with tempfile.TemporaryDirectory() as td:
+            card_dir, cpu_dir = Path(td) / "card", Path(td) / "cpu"
+            t0 = time.perf_counter()
+            drive("crossval", quiet(lambda: ref_crossval.run_replay(card_dir, "cuda",
+                                                                    "bfloat16")))
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            quiet(lambda: ref_crossval.run_replay(cpu_dir, "cpu", "bfloat16"))()
+            cpu_s = time.perf_counter() - t0
+            reps = {"card": ref_crossval.check(card_dir, "bfloat16"),
+                    "cpu": ref_crossval.check(cpu_dir, "bfloat16"),
+                    "card vs cpu": ref_crossval.check(card_dir, "bfloat16", against=cpu_dir)}
+        for table in reps["card"]["tables"]:
+            print(f"crossval {table}: " + "; ".join(
+                "{} {} max |d| {:.3g} = {:.3f} of tol".format(what, *worst_col(
+                    rep["tables"][table])) for what, rep in reps.items()), flush=True)
+        n = path_launches["crossval"]
+        print(f"crossval bf16: card {card_s:.2f} s, CPU {cpu_s:.2f} s; tables pass: "
+              + ", ".join(f"{w} {r['tables_pass']}/{r['tables_total']}" for w, r in reps.items()),
+              flush=True)
+        for what, rep in reps.items():
+            require(rep["pass"] and rep["tables_total"] == 27,
+                    f"crossval {what}: {rep['tables_pass']}/{rep['tables_total']} tables pass")
+        require(n["conv3x3_relu"] >= 1 and n["fused_ddim_update"] >= 1
+                and n["conv3x3_relu_int8"] == 0, f"crossval launches {n}")
+
+    with Phase(f"full width: cli.evaluate's table modes on the base-96 teachers, "
+               f"{FULL_FILES} files of {SIZE}x{SIZE}"):
+        from s1s2_torch.cli import evaluate
+        from s1s2_torch.core import random
+        from s1s2_torch.core.parametrize import Parameterization, q_sample
+        from s1s2_torch.data.synthetic import make_synthetic_patches
+        from s1s2_torch.eval.metrics import masked_mae
+        from s1s2_torch.sampling.grids import round_unique_grid
+        from s1s2_torch.sampling.samplers import (ddim_anchored, ddim_grid_sample,
+                                                  make_denoise_fn)
+
+        teacher = {p: str(CKPT_DIR / f"distill_{p}_teacher.bf16.msgpack") for p in ("eps", "v")}
+        nb = FULL_FILES // FULL_BATCH
+        ddim = {"conv3x3_relu": nb * FULL_STEPS * 13, "conv3x3_relu_int8": 0,
+                "fused_ddim_update": nb * FULL_STEPS, "matmul": 0, "halo_rows_x2": 0}
+        one = {**ddim, "conv3x3_relu": nb * 13, "fused_ddim_update": 0}
+        # (name, flags, exact launch counts, or None: the int8 mode, checked below)
+        full = (("ddim eps", ["--mode", "ddim", "--ckpt", teacher["eps"]], ddim),
+                ("ddim v", ["--mode", "ddim", "--ckpt", teacher["v"], "--pred_param", "v"],
+                 {**ddim, "fused_ddim_update": 0}),
+                ("ddim eps int8", ["--mode", "ddim", "--ckpt", teacher["eps"], "--int8"], None),
+                ("per_band", ["--mode", "per_band", "--ckpt", teacher["eps"]], one),
+                ("eps", ["--mode", "eps", "--ckpt", teacher["eps"]], one),
+                ("vdiag", ["--mode", "vdiag", "--ckpt", teacher["v"]], one),
+                ("onestep", ["--mode", "onestep", "--ckpt", teacher["eps"]],
+                 {**one, "conv3x3_relu": 13}))
+        files = {"ddim": ["ddim_metrics.csv", "ddim_summary.txt"],
+                 "per_band": ["per_band_all.csv", "per_band_summary.csv"],
+                 "eps": ["eps_diag.csv", "eps_summary.txt"],
+                 "vdiag": ["vdiag.csv", "vdiag_summary.txt"],
+                 "onestep": ["onestep_summary.txt", "pred_true.png", "gt_cir.png"]}
+        res = {}
+        with tempfile.TemporaryDirectory() as td:
+            make_synthetic_patches(f"{td}/p", n=FULL_FILES, size=SIZE, seed=0)
+            for name, flags, expect in full:
+                out = f"{td}/{name.replace(' ', '_')}"
+                argv = flags + ["--patch_dir", f"{td}/p", "--out_dir", out, "--t_start", "200",
+                                "--ddim_steps", str(FULL_STEPS)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res[name] = r = drive(f"full {name}", quiet(lambda argv=argv: evaluate.main(argv)))
+                dt = time.perf_counter() - t0
+                n = path_launches[f"full {name}"]
+                print(f"full {name}: {dt:.2f} s, {FULL_FILES / dt:.2f} patches/s on {card}; "
+                      f"{ {k: round(float(v), 6) for k, v in r.items()} }", flush=True)
+                mode = flags[1]
+                written = files[mode] + (["previews/000_ddim_pred_true.png"] if mode == "ddim"
+                                         else ["previews/005_pb_pred_cir.png"]
+                                         if mode == "per_band" else [])
+                require(all(Path(out, f).is_file() for f in written), f"full {name}: missing "
+                        f"{[f for f in written if not Path(out, f).is_file()]}")
+                require(all(np.isfinite(float(v)) for v in r.values()), f"full {name}: {r}")
+                if expect is None:
+                    require(n["conv3x3_relu_int8"] == nb * FULL_STEPS * 12
+                            and n["fused_ddim_update"] == nb * FULL_STEPS
+                            and n["conv3x3_relu"] >= nb * FULL_STEPS,
+                            f"full {name}: launches {n}")
+                else:
+                    require(n == expect, f"full {name}: launches {n}, expected {expect}")
+        for p, name in (("eps", "ddim eps"), ("v", "ddim v")):
+            print(f"harness ddim-20 {p} teacher MAE {res[name]['MAE_mean']:.5f} (anchor "
+                  f"{TEACHER_ANCHORS[p]}, difference {res[name]['MAE_mean'] - TEACHER_ANCHORS[p]:+.5f})",
+                  flush=True)
+        print(f"int8 ddim-20 eps teacher MAE {res['ddim eps int8']['MAE_mean']:.5f} beside bf16 "
+              f"{res['ddim eps']['MAE_mean']:.5f}", flush=True)
+        require(abs(res["ddim eps"]["MAE_mean"] - TEACHER_ANCHORS["eps"]) < MAE_SLACK,
+                f"harness ddim-20 eps MAE {res['ddim eps']['MAE_mean']} is not within "
+                f"{MAE_SLACK} of {TEACHER_ANCHORS['eps']}")
+
+        # the anchors' own protocol (tools/bench_distill.py): the whole
+        # evidence set under one batch key, ε GT-anchored linspace DDIM, v
+        # the round-unique grid from the GT-anchored init
+        cond_np, gt_np, mask_np = evidence_set(FULL_FILES, SIZE)
+        noise = torch.from_numpy(random.normal(random.PRNGKey(1234), gt_np.shape)).to(dev)
+        cond_t, gt_t, mask_t = (torch.from_numpy(a).to(dev) for a in (cond_np, gt_np, mask_np))
+        sched = Schedule.cosine(1000)
+        ab = sched.alpha_bar_np()
+        grid = round_unique_grid(200, FULL_STEPS, 1000)
+        K = int(grid[-1])
+        x_init = q_sample(gt_t, noise, float(np.sqrt(ab[K])), float(np.sqrt(1.0 - ab[K])))
+        anchored = {}
+        for p in ("eps", "v"):
+            model = load_unet(params_from_numpy(load_params(teacher[p])), 4, 96, 1, device=dev)
+            preds = []
+            for i in range(0, FULL_FILES, FULL_BATCH):
+                fn = make_denoise_fn(model, cond_t[i:i + FULL_BATCH])
+                preds.append(ddim_anchored(fn, gt_t[i:i + FULL_BATCH], sched, 200, FULL_STEPS,
+                                           noise=noise[i:i + FULL_BATCH]) if p == "eps" else
+                             ddim_grid_sample(fn, x_init[i:i + FULL_BATCH], sched, grid,
+                                              Parameterization.V))
+            anchored[p] = float(masked_mae(torch.cat(preds), gt_t, mask_t))
+            print(f"bench_distill protocol ddim-20 {p} teacher MAE {anchored[p]:.5f} (anchor "
+                  f"{TEACHER_ANCHORS[p]}, difference {anchored[p] - TEACHER_ANCHORS[p]:+.5f})",
+                  flush=True)
+            require(abs(anchored[p] - TEACHER_ANCHORS[p]) < MAE_SLACK,
+                    f"{p} teacher on the anchor's protocol: MAE {anchored[p]} is not within "
+                    f"{MAE_SLACK} of {TEACHER_ANCHORS[p]}")
+            del model, preds
+        del noise, cond_t, gt_t, mask_t, x_init
         torch.cuda.empty_cache()
 
     with Phase("probe path: probe_int8 all"):

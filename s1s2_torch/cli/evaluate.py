@@ -1,12 +1,13 @@
 """Evaluation CLI: the port of the JAX package's ``cli/evaluate.py``, with
-the same flags and defaults (and ``--device``); ``--mode`` takes the modes
-the port's harness has (``eval/harness.py:MODES``).
+the same flags, defaults and modes (``eval/harness.py:MODES``), and
+``--device``.
 
-    python -m s1s2_torch.cli.evaluate --mode cfg_sweep --patch_dir P \
-        --ckpt examples/checkpoints/cfg_v_teacher.bf16.msgpack --pred_param v \
-        --t_start 999 --ddim_steps 5 --guidance_scales 3 --save_viz_n 0 --out_dir out
+    python -m s1s2_torch.cli.evaluate --mode ddim --patch_dir P --out_dir out \
+        --ckpt examples/checkpoints/distill_eps_teacher.bf16.msgpack
 
-Prints the mode's result as one JSON line and returns it.
+Prints the mode's result as one JSON line and returns it. The modes that
+render only comparison panels (``night_demo``, ``cloudy_viz``) and
+``--mesh_data`` raise ``NotImplementedError`` (ROADMAP §1 item 7).
 """
 
 import argparse

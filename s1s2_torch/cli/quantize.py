@@ -17,7 +17,7 @@ import json
 
 def main(argv=None):
     ap = argparse.ArgumentParser("s1s2_torch quantize")
-    ap.add_argument("--ckpt", required=True, help=".msgpack checkpoint")
+    ap.add_argument("--ckpt", required=True, help=".msgpack or reference .pth")
     ap.add_argument("--patch_dir", required=True, help="calibration patches")
     ap.add_argument("--out", required=True, help="output .int8.msgpack")
     ap.add_argument("--T", type=int, default=1000)
@@ -41,8 +41,6 @@ def main(argv=None):
     from s1s2_torch.models.weights import params_from_numpy
     from s1s2_torch.train.checkpoint import load_params
 
-    if args.ckpt.endswith(".pth"):
-        raise NotImplementedError("the .pth reader is not ported yet (ROADMAP §1 item 4)")
     dev = torch.device(args.device)
     ds = NpzPatchDataset(args.patch_dir)
     _, Ct, _, _ = ds.probe_channels()

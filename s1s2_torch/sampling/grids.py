@@ -7,6 +7,7 @@ that it imports nothing of that package.
    toward zero, descending, length steps+1.
 2. round-unique: ``linspace(0, K, steps)`` → round → unique-sorted, with the
    endpoint appended if rounding dropped it. Ascending, variable length.
+3. full range: round-unique over [0, T-1] with no endpoint fix-up.
 """
 
 from __future__ import annotations
@@ -32,3 +33,8 @@ def round_unique_grid(t_hi: int, steps: int, T: int, ensure_endpoint: bool = Tru
     if ensure_endpoint and idxs[-1] != t_hi:
         idxs = np.unique(np.append(idxs, t_hi))
     return idxs
+
+
+def full_range_grid(T: int, steps: int) -> np.ndarray:
+    """Ascending unique grid over [0, T-1]."""
+    return np.unique(np.round(np.linspace(0.0, float(T - 1), steps)).astype(np.int64))

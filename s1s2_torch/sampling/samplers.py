@@ -271,13 +271,16 @@ def ddpm_ancestral(denoise_fn: DenoiseFn, shape: Tuple[int, ...], schedule: Sche
                    clip: Tuple[float, float] = (0.0, 1.0),
                    noise: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
-                   device=None) -> torch.Tensor:
+                   device=None, key: Optional[np.ndarray] = None) -> torch.Tensor:
     """Full ancestral DDPM from pure noise, T model calls.
 
     ``noise`` (optional) replays an external draw stream: shape
     ``(T,) + shape``, ``noise[0]`` the pure-noise init and ``noise[j]``
     (j = 1..T−1) the draw after the mean of step j, at t = T−j; the step at
-    t = 0 adds no noise.
+    t = 0 adds no noise. Else, with a jax-layout ``key``, the draws are the
+    JAX sampler's: ``split(key, T + 1)``, the init from the first key and
+    step j's draw from key j + 1, each the whole batch, on the host
+    (``core/random.py``); else from ``generator``.
     """
     T = schedule.T
     betas = schedule.betas.numpy().astype(np.float64)
@@ -293,8 +296,16 @@ def ddpm_ancestral(denoise_fn: DenoiseFn, shape: Tuple[int, ...], schedule: Sche
     sab, s1m = _f32(np.sqrt(ab[order])), _f32(np.sqrt(1.0 - ab[order]))
     scale = _f32(np.where(order > 0, np.sqrt(betas[order]), 0.0))
     param = Parameterization(param)
-    x_t = (_randn(shape, generator, dev) if noise is None
-           else noise[0].to(dev, torch.float32))
+    keys = random.split(random.as_key(key), T + 1) if noise is None and key is not None else None
+
+    def draw(j):  # the stream's j-th tensor: 0 the init, j the draw after step j-1
+        if noise is not None:
+            return noise[j].to(dev, torch.float32)
+        if keys is not None:
+            return torch.from_numpy(random.normal(keys[j], tuple(shape))).to(dev)
+        return _randn(shape, generator, dev)
+
+    x_t = draw(0)
     B = shape[0]
     for j, t in enumerate(order):
         pred = denoise_fn(x_t, _t_vec(t, B, dev))
@@ -306,9 +317,7 @@ def ddpm_ancestral(denoise_fn: DenoiseFn, shape: Tuple[int, ...], schedule: Sche
         if t == 0:
             x_t = mean
             break
-        z = (noise[j + 1].to(dev, torch.float32) if noise is not None
-             else _randn(shape, generator, dev))
-        x_t = mean + float(scale[j]) * z
+        x_t = mean + float(scale[j]) * draw(j + 1)
     return torch.clamp(x_t, clip[0], clip[1])
 
 

@@ -281,7 +281,12 @@ def msgpack_restore(data: bytes) -> Dict[str, Any]:
 
 def load_params(path: str) -> Dict[str, Any]:
     """Load a model-only msgpack checkpoint (the JAX package's
-    ``save_model`` artifact) as a nested dict of CPU tensors."""
+    ``save_model`` artifact) as a nested dict of CPU tensors, or a reference
+    ``.pth`` through ``models/convert.py`` as a nested dict of f32 arrays."""
+    if path.endswith(".pth"):
+        from s1s2_torch.models.convert import load_pth_checkpoint
+
+        return load_pth_checkpoint(path)["params"]
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
 

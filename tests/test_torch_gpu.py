@@ -200,3 +200,45 @@ def test_gpu_halo_output_does_not_depend_on_th(cuda):
     want = halo_rows_x2_plain(x)
     for th in (1, 2, 7, 32, 67, 68, 500):
         assert torch.equal(halo_rows_x2(x, th), want), th
+
+
+# the base-16 crossval nets at 32² (ref_{eps,v}_model.pth): (H, Cin, Cout)
+# of their 13 3x3 convs, down to 8×8 (narrower than the conv's 8×16 pixel
+# tile) and Cout 16 and 32 (below its 64-channel tile)
+CROSSVAL_CONVS = ((32, 9, 16), (32, 16, 32), (32, 32, 32), (16, 32, 64), (16, 64, 64),
+                  (8, 64, 128), (8, 128, 128), (8, 128, 64), (8, 64, 64), (16, 64, 32),
+                  (16, 32, 32), (32, 32, 16), (32, 16, 16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [8, 2, 1])
+@pytest.mark.parametrize("H,Ci,Co", CROSSVAL_CONVS)
+def test_gpu_conv_both_modes_at_the_crossval_shapes(cuda, B, H, Ci, Co):
+    g = torch.Generator(device=cuda).manual_seed(H * 1000 + Ci + Co)
+    x = torch.randn((B, H, H, Ci), generator=g, device=cuda).abs_().to(torch.bfloat16)
+    w = (0.1 * torch.randn((3, 3, Ci, Co), generator=g, device=cuda)).to(torch.bfloat16)
+    b = 0.1 * torch.randn((Co,), generator=g, device=cuda)
+    terms = conv3x3_relu_plain(x.float().abs(), w.float().abs(), b.abs(), False)
+    bound = 2 * (9 * Ci + 1) * 2.0 ** -24 * terms
+    got, ref = conv3x3_relu(x, w, b).float(), conv3x3_relu_plain(x, w, b).float()
+    mag = torch.maximum(got.abs(), ref.abs())
+    assert bool(((got - ref).abs() <= mag * 2.0 ** -7 + bound).all())
+    w8 = torch.randint(-127, 128, (3, 3, Ci, Co), generator=g, device=cuda).to(torch.int8)
+    sx = float(x.float().abs().amax()) / 127.0
+    deq = torch.rand((Co,), generator=g, device=cuda) * 1e-3
+    assert torch.equal(conv3x3_relu_int8(x, w8, sx, deq, b),
+                       conv3x3_relu_int8_plain(x, w8, sx, deq, b))
+
+
+@pytest.mark.gpu
+def test_gpu_ddim_kernel_on_a_padded_batch(cuda):
+    """The harness's last batch repeats its last file: the update is the
+    same on every copy."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((4, 32, 32, 4), generator=g, device=cuda)
+    e = torch.randn((4, 32, 32, 4), generator=g, device=cuda)
+    x[2:], e[2:] = x[1], e[1]
+    coefs = ddim_coefs(0.25, 0.99)
+    for k, p in zip(fused_ddim_update(x, e, *coefs), ddim_update_plain(x, e, *coefs)):
+        assert bool(((k - p).abs() <= 1e-6 * p.abs()).all())
+        assert torch.equal(k[2], k[1]) and torch.equal(k[3], k[1])

@@ -195,11 +195,16 @@ def test_random_and_msgpack_checkpoints(patches, tmp_path):
     assert ctx.model.stem_s2d == 4 and tuple(ctx.state["inc.kernel"].shape) == (3, 3, 129, 24)
 
 
-@pytest.mark.parametrize("kw", [{"mesh_data": 2}, {"cache_dir": "x"}, {"save_viz_n": 1},
-                                {"ckpt": "model.pth"}, {"mode": "ddim"}])
+@pytest.mark.parametrize("kw", [{"mesh_data": 2},
+                                {"mode": "night_demo"}, {"mode": "night_demo", "save_viz_n": 6},
+                                {"mode": "cloudy_viz"}, {"mode": "cloudy_viz", "save_viz_n": 6},
+                                {"mode": "tsweep", "save_viz_n": 1},
+                                {"mode": "cfg_sweep", "save_viz_n": 1}])
 def test_unported_options_raise(patches, tmp_path, kw):
+    """What needs ``save_panel``'s comparison panels (the two panel-only
+    modes, and tsweep's and cfg_sweep's previews) and ``--mesh_data``."""
     _, tcfg = _cfgs(patches, tmp_path, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7"):
         th.run_mode(tcfg)
 
 
@@ -268,7 +273,7 @@ def test_evaluate_parser_has_every_jax_flag_with_its_default():
                                                             a.required), flag
         if flag != "--mode" and a.choices is not None:
             assert list(b.choices) == list(a.choices), flag
-    assert list(topts["--mode"].choices) == sorted(th.MODES) == ["cfg_sweep"]
+    assert list(topts["--mode"].choices) == sorted(th.MODES) == sorted(jh.MODES)
     assert topts["--device"].default == "cuda"
 
 

@@ -39,7 +39,8 @@ def test_no_blocked_import_in_source(path):
 
 
 def test_port_has_the_mirrored_layout():
-    for sub in ("core", "ops", "models", "sampling", "eval", "data", "train", "cli"):
+    for sub in ("core", "ops", "models", "sampling", "eval", "data", "train", "cli", "viz",
+                "tools"):
         assert (REPO / "s1s2_torch" / sub / "__init__.py").is_file(), sub
 
 
@@ -93,12 +94,32 @@ SCRIPT = textwrap.dedent("""
     with tempfile.TemporaryDirectory() as td:
         save_quant(qp, td + "/q.msgpack")
         back = load_quant(td + "/q.msgpack")
+    # a reference .pth through the port's reader into table modes that write
+    # previews (the port's PNG encoder) and read the mmap cache, and the
+    # crossval replay's inputs (torch's own noise streams)
+    import glob
+    from pathlib import Path
+    from s1s2_torch.data.synthetic import make_synthetic_patches
+    from s1s2_torch.eval.harness import EvalConfig, run_mode
+    from s1s2_torch.tools import ref_crossval
+    with tempfile.TemporaryDirectory() as td:
+        make_synthetic_patches(td + "/p", n=2, size=32, seed=0)
+        table_modes = {{}}
+        for mode in ("ddim", "baseline_bicubic", "baseline_linear", "limitation"):
+            table_modes[mode] = run_mode(EvalConfig(
+                patch_dir=td + "/p", out_dir=td + "/" + mode, mode=mode, base_ch=16,
+                ckpt="examples/ref_crossval/ref_eps_model.pth", ddim_steps=2, batch_size=2,
+                save_viz_n=1, save_n=1, t_start=-1 if mode == "limitation" else 200,
+                cache_dir=td + "/cache", device="cpu"))
+        pngs = len(glob.glob(td + "/*/*.png") + glob.glob(td + "/*/previews/*.png"))
+        noise = sorted(ref_crossval.build_inputs(Path(td) / "cv"))
     loaded = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
     print(json.dumps({{"modules": mods, "shape": list(y.shape),
                       "finite": bool(torch.isfinite(y).all()), "loaded": loaded,
                       "dpm_shape": r["shape"], "dpm_finite": r["finite"],
                       "cfg_checked": cfg["quality_checked"] in (True, False),
-                      "cfg_shape": cfg["shape"], "int8_convs": len(back.w8)}}))
+                      "cfg_shape": cfg["shape"], "int8_convs": len(back.w8),
+                      "table_modes": sorted(table_modes), "pngs": pngs, "noise": noise}}))
 """)
 
 
@@ -116,9 +137,16 @@ def test_port_runs_with_jax_flax_msgpack_ml_dtypes_and_s1s2_blocked():
             "s1s2_torch.sampling.dpm_solver", "s1s2_torch.ops.matmul", "s1s2_torch.ops.halo",
             "s1s2_torch.bench", "s1s2_torch.tools.probe_int8", "s1s2_torch.eval.harness",
             "s1s2_torch.data.loader", "s1s2_torch.cli.evaluate",
-            "s1s2_torch.cli.quantize"} <= set(out["modules"])
+            "s1s2_torch.cli.quantize", "s1s2_torch.models.convert",
+            "s1s2_torch.eval.baselines", "s1s2_torch.viz.render",
+            "s1s2_torch.tools.ref_crossval"} <= set(out["modules"])
     assert out["dpm_shape"] == [1, 16, 16, 4] and out["dpm_finite"]
     assert out["cfg_checked"] and out["cfg_shape"] == [1, 16, 16, 4] and out["int8_convs"] == 10
+    assert out["table_modes"] == ["baseline_bicubic", "baseline_linear", "ddim", "limitation"]
+    # ddim's first file (2 previews), limitation's six-file set
+    assert out["pngs"] == 8
+    assert out["noise"] == ["limitation_noise", "limitation_v_noise", "onestep_noise", "patches",
+                            "ref_noise", "sweep_noise"]
 
 
 def test_blocker_really_blocks():
