@@ -44,6 +44,13 @@ Phases, each printing its own seconds:
    Cout 16 and 32 (below its 64-channel tile), at B=8 and 2 (ε net) and 4
    (v net), and the DDIM update on a padded batch, with phase 3's
    tolerances.
+3f. The int8 up-convs of ``quant_up`` (``ops/pixel_shuffle.
+   ps_conv_transpose_2x2_int8``: the product on the matmul kernel's int8
+   mode against the weight matrix packed once, zero-padded to its tiles) at
+   every up shape of base-96 at B=2, of the w24 pure-generation student at
+   B=16 and of the 24x4 at B=128 (K=48 with N=96, and N=192, padded), their
+   own int8 weights: the int32 sums and the bf16 output bit-equal to the
+   plain version.
 4. Main path: ``run_headline("24x4")`` — checkpoint through the port's own
    reader, 32-file evidence set, calibration (``PRNGKey(5)``), int8
    quantization, GT-anchored DDIM-1 on ``normal(PRNGKey(1234))``, masked
@@ -96,21 +103,47 @@ Phases, each printing its own seconds:
    within 0.02 of their anchors. The harness's v ``ddim`` is the reference
    v script's pure-noise generation from ``noise·√(1−ᾱ)``, another
    protocol; its MAE is printed beside the anchor, not held to it.
+4i. ``quant_up`` end to end: ``s1s2_torch.tools.bench_int8 --quant_up`` on
+   the base-96 ε teacher and the 32-file evidence set, B=64, DDIM-50 from
+   t=999, one warm-up and one timed call of each of bf16, int8 and int8 with
+   int8 up-convs: patches/s and MAEs printed, each MAE within 0.02 of bf16's,
+   exact launch counts; then one int8 + quant_up forward against the CPU op
+   by op, and the same net through ``save_quant`` and ``load_quant`` onto
+   the card: the same forward bit for bit.
+4j. Scene inference through ``cli.infer_scene``'s own code on the ε teacher:
+   (a) a 384² scene (4 tiles) with DDIM-2, card against the CPU plain path
+   within 1.5% of mean |pred|; (b) the device stitch against the host stitch
+   (max |Δ| ≤ 1e-5); (c) ``tools.bench_scene`` at 1536² (64 tiles, stride
+   192): ε DDIM-50 bf16 in the CLI's three settings (host, ``--stitch
+   device``, ``--fast_transfer``), then the tool's default (int8
+   DPM-Solver++(2M)-5, its six rows); seconds and tiles/s, exact launches.
+4k. Serving: the w24 student quantized by ``cli.quantize`` on files 0-95 of
+   the 129-file rich set at t_start 999; ``tools.bench_serve`` (its servers
+   in process on port 0): batch-1 and batch-16 latency p50/p95 over 10
+   requests, 4 client threads for 5 s, the predictor alone; the launch
+   counts exact under the threads. Then files 96-127 through ``/infer`` with
+   4 seeds: the pure-generation masked MAE (per file, as the committed
+   table) within 0.02 of the committed 0.28453 (int8 artifact) and 0.28051
+   (``--ckpt``, bf16), ``/healthz`` reporting the signature; and one request
+   to the cfg_v teacher at g=3, 5 steps: finite, the right shape.
 5. Timing at B=128 with CUDA events: each kernel at each path shape beside
    its plain version, ``F.conv2d`` (bf16 mode only) and its bound.
 5b. Timing at the base-96 shapes (bf16 at line 1's B=128, int8 at line 2's
    B=64: ``bench.LINE1_BATCH``, ``bench.LINE2_BATCH``) beside ``F.conv2d``
    and the bound, of the per-channel int8 mode at the CFG net's 10 int8
-   shapes (B=64), and of the probe kernels beside their plain versions,
-   ``torch.matmul``/``torch._int_mm`` and ``x[1:-1]*2``.
+   shapes (B=64), of the int8 up-convs' products at 3f's shapes and at
+   base-96's B=64 beside ``torch._int_mm``, and of the probe kernels beside
+   their plain versions, ``torch.matmul``/``torch._int_mm`` and
+   ``x[1:-1]*2``.
 
-Each path of 4-4h is driven with every launch count set to 0 just before it
+Each path of 4-4k is driven with every launch count set to 0 just before it
 and read just after; a kernel of the path that was not launched fails it.
 Then a ``{"kernels": [...]}`` line (the conv rows' times are those of the
 24x4 main path at B=128, and the per-channel int8 row's those of the CFG
 net's shapes at B=64; the matmul has a row per mode, bf16 → bf16 beside
-``torch.matmul`` and int8 → int32 beside ``torch._int_mm``; launches are
-summed over the paths), the card line
+``torch.matmul`` and int8 → int32 beside ``torch._int_mm``, and a row for
+its int8 mode on the packed up-conv weights of 4i; launches are summed over
+the paths), the card line
 again, and last ``{"ok": true, "device": {...}}``. Any failure raises, and
 no result is printed. The port never calls cuDNN, cuBLAS's ``torch.matmul``
 on the probe's operands or ``torch._int_mm``; they are timed here only as
@@ -124,6 +157,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -151,8 +185,18 @@ TEACHER_ANCHORS = {"eps": 0.44074, "v": 0.30411}
 FULL_FILES, FULL_BATCH, FULL_STEPS = 32, 8, 20  # the CLI's default batch
 # the ops of an int8 forward (``quant._forward``), looked up in the quant
 # module at call time
-QUANT_OPS = ("conv3x3_relu", "conv3x3_relu_int8", "ps_conv_transpose_2x2", "conv1x1",
-             "max_pool2")
+W24_CKPT = "distill_cfg_puregen_student24.bf16.msgpack"  # the served pure-generation student
+QU_BATCH, QU_STEPS = 64, 50  # 4i: bench_int8 --quant_up
+SCENE_SIZE, SCENE_STEPS, BENCH_SCENE = 384, 2, 1536  # 4j
+# 4k: rich files 96-127 served with 4 seeds; the committed pure-gen MAEs of
+# the w24 student (examples/checkpoints/README.md); bench_serve shortened
+SERVE_EVAL, SERVE_SEEDS = (96, 128), 4
+SERVE_ANCHORS = {"int8": 0.28453, "bf16": 0.28051}
+SERVE_N_LAT, SERVE_SAT_S, SERVE_THREADS = 10, 5.0, 4
+QUANT_OPS = ("conv3x3_relu", "conv3x3_relu_int8", "ps_conv_transpose_2x2",
+             "ps_conv_transpose_2x2_int8", "conv1x1", "max_pool2")
+# the ops a forward must give bit for bit on the card and the CPU
+EXACT_OPS = ("conv3x3_relu_int8", "ps_conv_transpose_2x2_int8", "max_pool2")
 
 
 class Phase:
@@ -337,7 +381,8 @@ def record_ops(quant, qp, x, t):
 def check_ops(torch, F, quant, what, calls):
     """Each op an int8 forward ran (``record_ops``) against the same function
     on the CPU, which runs every op's plain version, fed the op's own inputs.
-    The int8 convs and the max-pools must be bit-equal. The bf16 ``inc`` conv
+    The int8 convs, the int8 up-convs (``quant_up``: int32 sums on the matmul
+    kernel) and the max-pools must be bit-equal. The bf16 ``inc`` conv
     may differ by ``bf16_tolerance``. The up-convs and the 1x1 head are bf16
     matmuls with f32 accumulation (PyTorch's own on both devices): two bf16
     roundings (the product, then the bias add) plus twice the f32
@@ -348,7 +393,7 @@ def check_ops(torch, F, quant, what, calls):
         ref = getattr(quant, name)(*[a.cpu() if torch.is_tensor(a) else a
                                      for a in args]).to(out.device)
         d = (out.float() - ref.float()).abs()
-        if name in ("conv3x3_relu_int8", "max_pool2"):
+        if name in EXACT_OPS:
             ok = bool(torch.equal(out, ref))
             ratio = 0.0 if ok else float("inf")
         else:
@@ -411,7 +456,11 @@ def main():
     from s1s2_torch.ops.fused_elementwise import (ddim_coefs, ddim_update_plain,
                                                   fused_ddim_update)
     from s1s2_torch.ops.halo import halo_rows_x2, halo_rows_x2_plain
-    from s1s2_torch.ops.matmul import matmul, matmul_plain
+    from s1s2_torch.ops.conv3x3 import quantize_act
+    from s1s2_torch.ops.matmul import (matmul, matmul_int8_packed, matmul_int8_packed_plain,
+                                       matmul_plain)
+    from s1s2_torch.ops.pixel_shuffle import (ps_conv_transpose_2x2_int8,
+                                              ps_conv_transpose_2x2_int8_plain, ps_int8_weight)
     from s1s2_torch.tools import probe_int8, ref_crossval
     from s1s2_torch.train.checkpoint import load_params
 
@@ -695,6 +744,47 @@ def main():
         del xd, ed, got, ref
         torch.cuda.empty_cache()
 
+    # 3f: the int8 up-convs of quant_up, (label, state, body resolution,
+    # batch): base-96 at B=2 (tile multiples), the w24 pure-generation
+    # student at B=16 and the 24x4 at B=128 (K=48, N=96 and N=192: padded)
+    w24_cpu = params_from_numpy(load_params(str(CKPT_DIR / W24_CKPT)))
+    up_models = (("base-96", state96, SIZE, 2),
+                 ("w24", {k: v.to(dev) for k, v in w24_cpu.items()}, SIZE, 16),
+                 ("24x4", state, SIZE // STEM, 128))
+
+    def up_inputs(st, name, body, B):
+        """An up-conv's int8 operands: the model's own per-Co int8 kernel (packed
+        once), its input (|N(0,1)| bf16) and per-tensor scale as a 0-d tensor
+        on the card, deq = sx·sw, and its bias. → (x, wp, sx, deq, b, M, K, N)."""
+        w8u, sw = quantize_weights(st, quant_up=True)[0][name]
+        Ci, Co = w8u.shape[2], w8u.shape[3]
+        H = body >> {"up3": 3, "up2": 2, "up1": 1}[name]
+        x = torch.randn((B, H, H, Ci), generator=gen, device=dev).abs_().to(torch.bfloat16)
+        sx = x.float().abs().amax() / 127.0
+        return (x, ps_int8_weight(w8u), sx, (sx * sw).contiguous(),
+                st[f"{name}.bias"].contiguous(), B * H * H, Ci, 4 * Co)
+
+    with Phase("int8 up-convs (quant_up) on the matmul kernel's int8 mode vs plain version"):
+        err["matmul int8 up"] = 0.0
+        for label, st, body, B in up_models:
+            for name in ("up3", "up2", "up1"):
+                x, wp, sx, deq, b, M, K, N = up_inputs(st, name, body, B)
+                x8 = quantize_act(x, sx).reshape(M, K)
+                acc = matmul_int8_packed(x8, wp, N)
+                ref = matmul_int8_packed_plain(x8, wp, N)
+                same_acc = bool(torch.equal(acc, ref))
+                err["matmul int8 up"] = max(err["matmul int8 up"],
+                                            float((acc - ref).abs().max()))
+                y = ps_conv_transpose_2x2_int8(x, wp, sx, deq, b)
+                same_y = bool(torch.equal(y, ps_conv_transpose_2x2_int8_plain(x, wp, sx, deq, b)))
+                torch.cuda.synchronize()
+                print(f"check int8 up-conv {label} {name} B={B}: (M={M}, K={K}) x (K, N={N}), "
+                      f"packed {tuple(wp.shape)}; int32 bit-equal={same_acc}, bf16 out "
+                      f"bit-equal={same_y} {'ok' if same_acc and same_y else 'FAIL'}", flush=True)
+                require(same_acc and same_y, f"the int8 up-conv disagrees at {label} {name}")
+        del x, wp, x8, acc, ref, y
+        torch.cuda.empty_cache()
+
     with Phase("main path: run_headline('24x4')"):
         r = drive("headline 24x4", lambda: run_headline("24x4", batch=BATCH, device=dev,
                                                         size=SIZE))
@@ -725,17 +815,19 @@ def main():
         require(bool(torch.isfinite(y_dev).all()) and float(d.mean()) <= bound,
                 f"the card's {what} disagrees with the CPU plain path")
 
-    def int8_forward_check(what, qp, xin, tin, n_int8=12):
+    def int8_forward_check(what, qp, xin, tin, n_int8=12, n_up8=0):
         """The card's int8 forward against the CPU plain path, op by op
         (``check_ops``): every op fed the same input gives the same output, up
-        to the bf16 rounding of ``inc``, the up-convs and the head. The whole
+        to the bf16 rounding of ``inc``, the bf16 up-convs and the head (the
+        ``n_up8`` int8 up-convs of ``quant_up`` are bit-equal). The whole
         forward's mean |card − CPU| is printed beside the int8 quantization
         error (mean |int8 − bf16| of the same model on the CPU), not held to
         a bound: a one-ulp change in a bf16 op can move an activation across
         an int8 step in every block after it."""
         e_dev, calls = record_ops(quant, qp, xin, tin)
         rows = check_ops(torch, F, quant, what, calls)
-        require(len(rows) == 20 and sum(r[0] == "conv3x3_relu_int8" for r in rows) == n_int8,
+        require(len(rows) == 20 and sum(r[0] == "conv3x3_relu_int8" for r in rows) == n_int8
+                and sum(r[0] == "ps_conv_transpose_2x2_int8" for r in rows) == n_up8,
                 f"{what}: the int8 forward ran {[r[0] for r in rows]}")
         qpc = qp.to("cpu")
         e_cpu = quant_apply(qpc, xin.cpu(), tin.cpu())
@@ -745,7 +837,7 @@ def main():
         d = float((e_dev.cpu() - e_cpu).abs().mean())
         print(f"{what}: 20 ops, {sum(r[1] == 0 for r in rows)} bit-equal, the rest within "
               f"their bounds (worst |d|/bound of a bf16 op "
-              f"{max(r[3] for r in rows if r[0] not in ('conv3x3_relu_int8', 'max_pool2')):.3g}); "
+              f"{max(r[3] for r in rows if r[0] not in EXACT_OPS):.3g}); "
               f"whole forward mean |card - cpu| {d:.4g} = {d / gap:.3f} x the int8-vs-bf16 "
               f"gap {gap:.4g} (|eps| mean {float(e_cpu.abs().mean()):.4g})", flush=True)
         require(bool(torch.isfinite(e_dev).all()), f"{what}: the card's output is not finite")
@@ -1025,6 +1117,202 @@ def main():
         del noise, cond_t, gt_t, mask_t, x_init
         torch.cuda.empty_cache()
 
+    from s1s2_torch.tools import bench_int8, bench_scene, bench_serve
+
+    def tagged(tag):
+        """An ``emit`` for the tools: their JSON rows, prefixed."""
+        return lambda line: print(f"{tag}: {line}", flush=True)
+
+    with Phase(f"quant_up: bench_int8 --quant_up, the base-96 eps teacher, {FULL_FILES} "
+               f"evidence files, B={QU_BATCH}, DDIM-{QU_STEPS}"):
+        with tempfile.TemporaryDirectory() as td:
+            make_synthetic_patches(f"{td}/p", n=FULL_FILES, size=SIZE, seed=0)
+            qu = drive("quant_up", lambda: bench_int8.run(
+                batch=QU_BATCH, steps=QU_STEPS, iters=1, ckpt=teacher["eps"], patches=f"{td}/p",
+                quant_up=True, device=dev, emit=tagged("bench_int8")))
+            # the artifact: the quant_up net written and read back onto the card
+            quant.save_quant(qu["qp"]["int8_quant_up"], f"{td}/up.int8.msgpack")
+            qu_loaded = quant.load_quant(f"{td}/up.int8.msgpack", dev)
+        n = path_launches["quant_up"]
+        calls = 2 * QU_STEPS  # one warm-up and one timed call a path
+        expect = {"conv3x3_relu": len(bench_int8.CALIB_TVALS) * 13 + calls * 13 + 2 * calls,
+                  "conv3x3_relu_int8": 2 * calls * 12, "fused_ddim_update": 3 * calls,
+                  "matmul": calls * 3, "halo_rows_x2": 0}
+        require(n == expect and matmul_launches["quant_up"]["int8"] == calls * 3,
+                f"quant_up: launches {n}, expected {expect}")
+        for row in qu["rows"]:
+            mae = qu[f"mae_{row['path']}"]
+            print(f"bench_int8 {row['path']}: {row['patches_per_s']:.3f} patches/s at "
+                  f"B={QU_BATCH}, DDIM-{QU_STEPS}, MAE {mae:.5f} (bf16 - this "
+                  f"{qu['mae_bf16'] - mae:+.5f}) on {card}", flush=True)
+            require(abs(mae - qu["mae_bf16"]) < MAE_SLACK and np.isfinite(mae),
+                    f"quant_up: {row['path']} MAE {mae} is not within {MAE_SLACK} of bf16's")
+        xin = torch.rand((2, SIZE, SIZE, 8), generator=gen, device=dev)
+        tin = torch.tensor([999, 200], dtype=torch.int32, device=dev)
+        int8_forward_check("base-96 int8 + quant_up forward", qu["qp"]["int8_quant_up"], xin,
+                           tin, n_up8=3)
+        same = torch.equal(quant_apply(qu_loaded, xin, tin),
+                           quant_apply(qu["qp"]["int8_quant_up"], xin, tin))
+        print(f"quant_up artifact: save_quant, then load_quant onto {dev}: "
+              f"{sorted(qu_loaded.up8)} packed on the card, forward bit-equal={same}", flush=True)
+        require(same and all(w.is_cuda for w in qu_loaded.up8.values()),
+                "a quant_up artifact loaded onto the card does not give the same forward")
+        del qu, qu_loaded
+        torch.cuda.empty_cache()
+
+    with Phase(f"scene inference: cli.infer_scene on the eps teacher ({SCENE_SIZE}x{SCENE_SIZE} "
+               f"and {BENCH_SCENE}x{BENCH_SCENE})"):
+        from s1s2_torch.cli import infer_scene as scene_cli
+
+        scene = np.random.default_rng(0).standard_normal((SCENE_SIZE, SCENE_SIZE, 4)).astype(
+            np.float32)
+
+        def scene_run(device, extra=()):
+            args = scene_cli.build_parser().parse_args(
+                ["--scene", "-", "--ckpt", teacher["eps"], "--out_dir", "-", "--ddim_steps",
+                 str(SCENE_STEPS), "--batch_size", "4", "--device", str(device), *extra])
+            return scene_cli.run(args, scene, None)
+
+        # (a) 4 tiles, one batch, on the card and on the CPU plain path
+        host = drive("scene eps", lambda: scene_run(dev))
+        cpu = scene_run("cpu")
+        n = path_launches["scene eps"]
+        require(n == {"conv3x3_relu": SCENE_STEPS * 13, "conv3x3_relu_int8": 0,
+                      "fused_ddim_update": SCENE_STEPS, "matmul": 0, "halo_rows_x2": 0},
+                f"scene: launches {n}")
+        forward_check(f"scene {SCENE_SIZE}x{SCENE_SIZE} eps DDIM-{SCENE_STEPS}",
+                      torch.from_numpy(host), torch.from_numpy(cpu),
+                      0.015 * float(np.abs(cpu).mean()), "1.5% of mean |pred|")
+        # (b) the device stitch against the host stitch of the same predictions
+        on_dev = drive("scene eps device stitch", lambda: scene_run(dev, ["--stitch", "device"]))
+        d = float(np.abs(on_dev - host).max())
+        print(f"scene device stitch vs host stitch: max |d| {d:.3g} (max |pred| "
+              f"{float(np.abs(host).max()):.4g})", flush=True)
+        require(host.shape == (SCENE_SIZE, SCENE_SIZE, 4) and np.isfinite(host).all()
+                and d <= 1e-5, f"scene: the device stitch is {d} from the host stitch")
+        # (c) bench_scene at 1536x1536: eps DDIM-50 bf16 in the CLI's three
+        # settings, then its default config (int8 DPM-Solver++(2M)-5, six rows)
+        scene_rows = drive("scene bench eps bf16", lambda: bench_scene.main(
+            ["--ckpt", teacher["eps"], "--precision", "bf16", "--solver", "ddim", "--steps",
+             "50", "--t_start", "999", "--modes", "cli", "--repeats", "1", "--size",
+             str(BENCH_SCENE), "--device", str(dev)], emit=tagged("bench_scene")))
+        n = path_launches["scene bench eps bf16"]
+        batches = 3 * (1 + 64 // 16)  # a warm-up scene and one timed scene a row
+        require(n == {"conv3x3_relu": batches * 50 * 13, "conv3x3_relu_int8": 0,
+                      "fused_ddim_update": batches * 50, "matmul": 0, "halo_rows_x2": 0},
+                f"scene bench eps bf16: launches {n}")
+        scene_rows += drive("scene bench int8", lambda: bench_scene.main(
+            ["--repeats", "2", "--size", str(BENCH_SCENE), "--device", str(dev)],
+            emit=tagged("bench_scene")))
+        n = path_launches["scene bench int8"]
+        batches, calls = 6 * (1 + 2 * 64 // 16), len(round_unique_grid(200, 5, 1000))
+        require(n == {"conv3x3_relu": 3 * 13 + batches * calls,
+                      "conv3x3_relu_int8": batches * calls * 12, "fused_ddim_update": 0,
+                      "matmul": 0, "halo_rows_x2": 0}, f"scene bench int8: launches {n}")
+        for r in scene_rows:
+            print(f"scene {r['scene']} ({r['tiles']} tiles, batch {r['batch']}, {r['sampler']}) "
+                  f"{r['mode']}: {r['scene_seconds']:.3f} s, {r['tiles_per_s']:.2f} tiles/s on "
+                  f"{card}", flush=True)
+        del host, cpu, on_dev
+        torch.cuda.empty_cache()
+
+    with Phase("serving: cli.quantize on the rich set, bench_serve, the pure-gen MAEs, CFG"):
+        from s1s2_torch.cli import quantize as quantize_cli
+        from s1s2_torch.data.dataset import NpzPatchDataset
+        from s1s2_torch.eval.metrics import per_file_mae_mse
+
+        w24_path = str(CKPT_DIR / W24_CKPT)
+        with tempfile.TemporaryDirectory() as td:
+            rich, train = Path(td, "rich"), Path(td, "train")
+            make_synthetic_patches(str(rich), n=bench.CFG_SET[0], size=SIZE, seed=0, rich=True,
+                                   compress=False)
+            train.mkdir()
+            for i in range(SERVE_EVAL[0]):  # the training files 0-95
+                (train / f"patch_{i:06d}.npz").symlink_to(rich / f"patch_{i:06d}.npz")
+            q_path = f"{td}/w24.int8.msgpack"
+            quiet(lambda: quantize_cli.main(["--ckpt", w24_path, "--base_ch", "24",
+                                             "--patch_dir", str(train), "--t_start", "999",
+                                             "--out", q_path, "--device", str(dev)]))()
+            rows = drive("serve bench", lambda: bench_serve.main(
+                ["--int8_ckpt", q_path, "--n_lat", str(SERVE_N_LAT), "--sat_seconds",
+                 str(SERVE_SAT_S), "--device", str(dev)], emit=tagged("bench_serve")))
+            n = path_launches["serve bench"]
+            # forwards a chunk: the v sampler's grid points; chunks: each server's
+            # warm-up, a first request, n_lat timed ones, the saturated requests
+            # and the predictor's 51 device-only calls
+            forwards = len(round_unique_grid(999, 1, 1000))
+            chunks = (2 + SERVE_N_LAT) + (2 + SERVE_N_LAT + rows[2]["requests"] + 51)
+            require(n == {"conv3x3_relu": chunks * forwards,
+                          "conv3x3_relu_int8": chunks * forwards * 12, "fused_ddim_update": 0,
+                          "matmul": 0, "halo_rows_x2": 0},
+                    f"serve bench: launches {n}, expected {chunks} chunks of {forwards} "
+                    f"forwards (the counts under {SERVE_THREADS} client threads)")
+            for r in rows:
+                print(f"serve w24 int8 {r['phase']}: " + ", ".join(
+                    f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in r.items() if k not in ("phase", "device")) + f" on {card}",
+                      flush=True)
+            ds = NpzPatchDataset(str(rich))
+            items = [ds[i] for i in range(*SERVE_EVAL)]
+            cond_e = np.stack([it["cond"] for it in items])
+            gt_e = torch.from_numpy(np.stack([it["target"] for it in items]))
+            mask_e = torch.from_numpy(np.stack([it["mask"] for it in items]))
+            for tag, flags, anchor in (("int8", ["--int8_ckpt", q_path], SERVE_ANCHORS["int8"]),
+                                       ("bf16", ["--ckpt", w24_path, "--base_ch", "24"],
+                                        SERVE_ANCHORS["bf16"])):
+                def served(flags=flags):
+                    httpd, url, st = bench_serve.start_server(
+                        flags + ["--port", "0", "--device", str(dev)])
+                    try:
+                        with urllib.request.urlopen(url + "/healthz") as resp:
+                            health = json.loads(resp.read())
+                        outs = [bench_serve.post_infer(url, cond_e, seed)
+                                for seed in range(SERVE_SEEDS)]
+                    finally:
+                        bench_serve.stop_server(httpd)
+                    return health, outs
+                health, outs = drive(f"serve mae {tag}", served)
+                require(health["signature"] == {"batch": 16, "patch": SIZE,
+                                                "transfer_dtype": "float16"}
+                        and health["model"]["int8"] == (tag == "int8")
+                        and health["model"]["base_ch"] == 24, f"serve {tag}: /healthz {health}")
+                maes = [per_file_mae_mse(torch.from_numpy(o), gt_e, mask_e)[0].mean().item()
+                        for o in outs]
+                mae = float(np.mean(maes))
+                print(f"served w24 pure-gen {tag} MAE {mae:.5f} over files {SERVE_EVAL[0]}-"
+                      f"{SERVE_EVAL[1] - 1} x {SERVE_SEEDS} seeds (per seed "
+                      f"{[round(m, 5) for m in maes]}; committed {anchor}, difference "
+                      f"{mae - anchor:+.5f}); warm-up {health['warmup_s']} s "
+                      f"{health['warmup_parts']}", flush=True)
+                require(all(np.isfinite(o).all() and o.shape == (32, SIZE, SIZE, 4) for o in outs)
+                        and abs(mae - anchor) < MAE_SLACK,
+                        f"served {tag} MAE {mae} is not within {MAE_SLACK} of {anchor}")
+                require(path_launches[f"serve mae {tag}"]["conv3x3_relu"] >= 1
+                        and (path_launches[f"serve mae {tag}"]["conv3x3_relu_int8"] >= 1)
+                        == (tag == "int8"), f"serve {tag}: launches "
+                                            f"{path_launches[f'serve mae {tag}']}")
+            # the cfg_v teacher at g=3, 5 steps: one request
+            cfg_path = str(CKPT_DIR / bench.CFG_CKPT)
+
+            def cfg_request():
+                httpd, url, _ = bench_serve.start_server(
+                    ["--ckpt", cfg_path, "--guidance_scale", "3", "--steps", "5",
+                     "--batch_size", "4", "--port", "0", "--device", str(dev)])
+                try:
+                    return bench_serve.post_infer(url, cond_e[:2], 5)
+                finally:
+                    bench_serve.stop_server(httpd)
+            t0 = time.perf_counter()
+            out = drive("serve cfg", cfg_request)
+            print(f"served cfg_v teacher g=3, 5 steps: {tuple(out.shape)}, finite "
+                  f"{bool(np.isfinite(out).all())}, {time.perf_counter() - t0:.2f} s with the "
+                  f"server's start", flush=True)
+            require(out.shape == (2, SIZE, SIZE, 4) and np.isfinite(out).all(),
+                    f"served cfg: bad output {out.shape}")
+            require(path_launches["serve cfg"]["conv3x3_relu"] == 2 * 5 * 13,
+                    f"serve cfg: launches {path_launches['serve cfg']}")
+        torch.cuda.empty_cache()
+
     with Phase("probe path: probe_int8 all"):
         probe = drive("probe", lambda: probe_int8.main(["all"]))
         n = path_launches["probe"]
@@ -1092,6 +1380,37 @@ def main():
         print(f"time cfg 10 per-channel int8 convs of one CFG forward, B={CFG_CHECK_BATCH}: "
               f"kernel {pc['ms']:.3f} ms, plain {pc['plain']:.3f} ms, bound {pc['bound']:.3f} ms",
               flush=True)
+
+        # the int8 up-convs' products on the packed weights: each model's three
+        # at its 3f batch, and base-96's at bench_int8's B=64 (the quant_up path;
+        # its sums are the kernel row's), beside the plain version and
+        # torch._int_mm on the same unpadded operands
+        up = dict(ms=0.0, plain=0.0, library=0.0, bound=0.0, bytes=0.0, operations=0.0)
+        for label, st, body, B in up_models + (("base-96", state96, SIZE, QU_BATCH),):
+            for name in ("up3", "up2", "up1"):
+                ins, libs = [], []
+                for _ in range(2):
+                    x, wp, sx, _, _, M, K, N = up_inputs(st, name, body, B)
+                    x8 = quantize_act(x, sx).reshape(M, K)
+                    ins.append((x8,))
+                    libs.append((x8, wp[:N, :K].t().contiguous()))
+                ms = time_ms(torch, lambda a, wp=wp, N=N: matmul_int8_packed(a, wp, N), ins, 20)
+                plain_ms = time_ms(torch, lambda a, wp=wp, N=N: matmul_int8_packed_plain(a, wp, N),
+                                   ins, 3)
+                lib_ms = time_ms(torch, torch._int_mm, libs, 20)
+                bound, by = matmul_bound_ms(M, K, N, "int8")
+                print(f"time int8 up-conv {label} {name} B={B} (M={M}, K={K}) x (K, N={N}): "
+                      f"kernel {ms:.4f} ms (padded to {tuple(wp.shape)}), plain {plain_ms:.4f} ms, "
+                      f"_int_mm {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+                if B == QU_BATCH:
+                    for k, v in (("ms", ms), ("plain", plain_ms), ("library", lib_ms),
+                                 ("bound", bound), (by, bound)):
+                        up[k] += v
+                del ins, libs, x, wp, x8
+        print(f"time base-96 3 int8 up-convs, B={QU_BATCH}: kernel {up['ms']:.4f} ms, plain "
+              f"{up['plain']:.4f} ms, _int_mm {up['library']:.4f} ms, bound {up['bound']:.4f} ms",
+              flush=True)
+        torch.cuda.empty_cache()
 
         M, K, N = MATMUL_SHAPES[1]
         mm = {}
@@ -1170,6 +1489,14 @@ def main():
                      "launches": total_matmul[mode], "max_abs_err": err[f"matmul {mode}"],
                      "ms": t["ms"], "plain_ms": t["plain"], "bound_ms": t["bound"],
                      "bound_by": t["by"], "library_ms": t["library"]})
+    rows.append({"name": f"matmul (int8 mode, packed B: base-96's 3 up-convs of quant_up, "
+                         f"B={QU_BATCH})", "route": "cuda",
+                 "source": src + "matmul.cu", "replaces": "tools/probe_pallas_int8.py:43",
+                 "launches": matmul_launches["quant_up"]["int8"],
+                 "max_abs_err": err["matmul int8 up"], "ms": up["ms"], "plain_ms": up["plain"],
+                 "bound_ms": up["bound"],
+                 "bound_by": "bytes" if up["bytes"] >= up["operations"] else "operations",
+                 "library_ms": up["library"]})
     rows.append({"name": "halo_rows_x2 (256,128,128) TH=32", "route": "cuda",
                  "source": src + "halo.cu", "replaces": "tools/probe_pallas_int8.py:133",
                  "launches": total_launches["halo_rows_x2"],

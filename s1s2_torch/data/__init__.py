@@ -1,1 +1,2 @@
-"""Patch data: the npz dataset and the synthetic generator."""
+"""Patch data: the npz dataset, its loader, the synthetic generator and the
+valid-mask z-score."""

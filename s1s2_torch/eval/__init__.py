@@ -1,1 +1,2 @@
-"""Evaluation metrics."""
+"""Evaluation: the metrics, the harness and its baselines, and full-scene
+tiled inference."""

@@ -10,8 +10,12 @@ Port of the JAX package's ``models/quant.py``:
   tensor, or with ``act_perchannel`` one per input channel, folded into the
   weights before they are quantized (``w·sx_ci``), so the dequant factor is
   ``sw`` alone;
-* ``inc`` (which carries the raw-integer t channel), the 2×2 transposed
-  convs and the 1×1 head stay bf16.
+* ``inc`` (which carries the raw-integer t channel) and the 1×1 head stay
+  bf16; the 2×2 transposed convs too, unless ``quant_up``, which quantizes
+  their kernels per output channel in the same way and runs them as int8
+  products on the matmul kernel's int8 mode
+  (``ops/pixel_shuffle.ps_conv_transpose_2x2_int8``), dequantized with
+  ``acc·deq + b`` and no ReLU.
 
 Calibration batches come from the sampler's own states: ``q_sample(gt)`` at
 a spread of timesteps (:func:`make_sampler_calib`, with zeroed-cond twins
@@ -19,8 +23,6 @@ for guidance), or a guided bf16 rollout (:func:`make_cfg_rollout_calib`).
 :func:`save_quant` and :func:`load_quant` write and read the JAX package's
 msgpack artifact. Calibration and inference share one forward skeleton
 (:func:`_forward`), so the topology cannot drift between them.
-``quant_up`` (int8 transposed convs) is not ported and raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ from s1s2_torch.core.parametrize import Parameterization, q_sample
 from s1s2_torch.models.unet import BLOCKS, UPS, conv1x1, input_map, max_pool2
 from s1s2_torch.models.weights import params_from_numpy
 from s1s2_torch.ops.conv3x3 import conv3x3_relu, conv3x3_relu_int8, packed_int8_weight
-from s1s2_torch.ops.pixel_shuffle import depth_to_space, ps_conv_transpose_2x2
+from s1s2_torch.ops.pixel_shuffle import (depth_to_space, ps_conv_transpose_2x2,
+                                          ps_conv_transpose_2x2_int8, ps_int8_weight)
 from s1s2_torch.train.checkpoint import load_params, msgpack_serialize
 
 Scale = Union[float, torch.Tensor]
@@ -47,13 +50,6 @@ def conv_names(bf16_blocks: Tuple[str, ...] = ()) -> List[str]:
             for c in ("conv1", "conv2")]
 
 
-def _no_quant_up(quant_up: bool) -> None:
-    if quant_up:
-        raise NotImplementedError(
-            "quant_up (int8 2x2 transposed convs) is not ported yet: ROADMAP §1, "
-            "queued with tools/bench_int8.py")
-
-
 @dataclasses.dataclass
 class QuantParams:
     """int8 weights and scales of the double-conv blocks, and the bf16
@@ -61,7 +57,8 @@ class QuantParams:
 
     ``params``: flat f32 state (``"down1.conv1.kernel"``, …);
     ``w8``: name → (int8 HWIO kernel, per-Co f32 ``sw``), for the convs that
-    run in int8 (a double-conv absent from it runs in bf16);
+    run in int8 (a double-conv absent from it runs in bf16; ``up3``/``up2``/
+    ``up1`` are in it under ``quant_up``);
     ``act_scale``: name → ``sx``, a Python float (per tensor) or a (Ci,) f32
     tensor (``act_perchannel``).
     """
@@ -78,7 +75,12 @@ class QuantParams:
     def __post_init__(self):
         # bf16 kernels and f32 biases for the convs that run in bf16; for the
         # int8 ones the scale on the device and deq (quant.py:166): f32(sx)·sw
-        # in f32 per tensor, sw alone per channel (sx folded into w8)
+        # in f32 per tensor, sw alone per channel (sx folded into w8). The
+        # int8 up-convs get their packed matmul operand (on every device) and
+        # sx as a tensor on the device, which spares their quantize pass a
+        # host copy; the 3x3 convs' int8 weights get the conv kernel's layout
+        # on a card
+        self.up8: Dict[str, torch.Tensor] = {}
         self.bf16 = {k[:-len(".kernel")]: v.to(torch.bfloat16).contiguous()
                      for k, v in self.params.items() if k.endswith(".kernel")}
         self.b32 = {k[:-len(".bias")]: v.to(torch.bfloat16).float().contiguous()
@@ -95,7 +97,12 @@ class QuantParams:
                 self.sx[name] = float(sx)
                 self.deq[name] = (torch.tensor(float(sx), dtype=torch.float32,
                                                device=sw.device) * sw).contiguous()
-            if q.device.type == "cuda":
+            if name in UPS:
+                self.up8[name] = ps_int8_weight(q)
+                if not self.act_perchannel:
+                    self.sx[name] = torch.tensor(float(sx), dtype=torch.float32,
+                                                 device=sw.device)
+            elif q.device.type == "cuda":
                 packed_int8_weight(q)  # the card kernel's layout, made once here
 
     def to(self, device) -> "QuantParams":
@@ -113,14 +120,14 @@ def quantize_weights(params: Dict[str, torch.Tensor], quant_up: bool = False,
                      act_scales: Optional[Dict[str, Scale]] = None,
                      bf16_blocks: Tuple[str, ...] = ()):
     """Per-output-channel symmetric int8 for every double-conv kernel outside
-    ``bf16_blocks``, in numpy exactly as the JAX package does it; with
+    ``bf16_blocks`` (and with ``quant_up`` the three 2×2 transposed-conv
+    kernels), in numpy exactly as the JAX package does it; with
     ``act_scales`` (per-input-channel scales) each kernel is first scaled by
     its input channels' ``sx`` in f32. → (w8, bias) on params' device."""
-    _no_quant_up(quant_up)
     w8, bias = {}, {}
-    for name in conv_names(tuple(bf16_blocks)):
+    for name in conv_names(tuple(bf16_blocks)) + (list(UPS) if quant_up else []):
         k = params[f"{name}.kernel"]
-        w = k.detach().cpu().numpy().astype(np.float32)  # (3,3,Ci,Co)
+        w = k.detach().cpu().numpy().astype(np.float32)  # (3,3,Ci,Co) / (2,2,Ci,Co)
         if act_scales is not None:
             sx = act_scales[name]
             sx = (sx.detach().cpu().numpy() if isinstance(sx, torch.Tensor)
@@ -140,7 +147,7 @@ def _forward(qp: QuantParams, x_and_cond: torch.Tensor, t_idx: torch.Tensor, *,
     """mode='calib': bf16 blocks, record each block/up input's absmax (per
     tensor, or per channel when ``qp.act_perchannel``).
     mode='int8': the convs of ``qp.w8`` in int8 with the static scales, the
-    other double-convs in bf16."""
+    other double-convs and up-convs in bf16."""
     x = input_map(x_and_cond, t_idx, qp.stem_s2d, torch.bfloat16)
 
     def record(x, name):
@@ -161,7 +168,10 @@ def _forward(qp: QuantParams, x_and_cond: torch.Tensor, t_idx: torch.Tensor, *,
     def up_conv(x, name):
         if mode == "calib":
             record(x, name)
-        return ps_conv_transpose_2x2(x, qp.bf16[name], qp.b32[name])
+        if mode == "calib" or name not in qp.w8:
+            return ps_conv_transpose_2x2(x, qp.bf16[name], qp.b32[name])
+        return ps_conv_transpose_2x2_int8(x, qp.up8[name], qp.sx[name], qp.deq[name],
+                                          qp.bias[name])
 
     e1 = conv3x3_relu(x, qp.bf16["inc"], qp.b32["inc"])
     e2 = max_pool2(block(e1, "down1"))
@@ -289,12 +299,13 @@ def quantize_unet(params: Dict[str, torch.Tensor], calib_batches, out_ch: int = 
                   act_perchannel: bool = False,
                   bf16_blocks: Tuple[str, ...] = ()) -> QuantParams:
     """One-call post-training quantization of a trained UNetSmall state:
-    calibrate (per tensor or per channel), then quantize the weights, with
-    the per-channel scales folded in."""
-    _no_quant_up(quant_up)
+    calibrate (per tensor or per channel; the up-convs' inputs are recorded
+    too), then quantize the weights, with the per-channel scales folded in;
+    ``quant_up`` also runs the 2×2 transposed convs in int8."""
     scales = calibrate(params, calib_batches, out_ch, base_ch, stem_s2d,
                        per_channel=act_perchannel)
-    w8, bias = quantize_weights(params, act_scales=scales if act_perchannel else None,
+    w8, bias = quantize_weights(params, quant_up=quant_up,
+                                act_scales=scales if act_perchannel else None,
                                 bf16_blocks=tuple(bf16_blocks))
     return QuantParams(params, w8, bias, scales, out_ch, base_ch, stem_s2d,
                        act_perchannel=act_perchannel)

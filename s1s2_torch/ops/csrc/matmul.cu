@@ -36,7 +36,8 @@
 // wgmma's transpose flag (64-column chunks of 64 K rows, 8192 bytes apart);
 // s8 operands must be K-major, so the int8 mode first transposes B into a
 // K-major (N, K) scratch the caller allocates (transpose_i8_kernel, one pass
-// over B). Out-of-bounds rows and K columns of a box are zero-filled by the
+// over B), unless the caller hands B over already K-major (a constant
+// operand such as the int8 up-convs' weights, packed once). Out-of-bounds rows and K columns of a box are zero-filled by the
 // TMA, so a K that is not a multiple of the stage depth needs no special
 // case.
 //
@@ -402,13 +403,15 @@ extern "C" {
 // mode 0: bf16 -> f32, 1: bf16 -> bf16, 2: int8 -> int32. M and N must be
 // multiples of 128, K of 32 (bf16) or 64 (int8); every pointer 16-byte
 // aligned. b_t is the int8 mode's (N, K) scratch for the transposed B (N*K
-// bytes, unused for bf16).
+// bytes, unused for bf16). In mode 2 a null b means that b_t already holds
+// B K-major (a constant operand packed once by the caller): the transpose
+// is skipped.
 int s1s2k_matmul(const void* a, const void* b, void* b_t, void* c, int M, int N, int K,
                  int mode, int device, void* stream) {
   const bool i8 = mode == 2;
   if (mode < 0 || mode > 2 || M <= 0 || N <= 0 || K <= 0 || M % BM || N % 128 ||
       K % (i8 ? 64 : 32) || M / BM > 65535 || device < 0 || device >= 64 ||
-      (i8 && !b_t) ||
+      (i8 && !b_t) || (!i8 && !b) ||
       ((uintptr_t)a | (uintptr_t)b | (uintptr_t)b_t | (uintptr_t)c) % 16)
     return (int)cudaErrorInvalidValue;
   int cur = -1;
@@ -421,10 +424,12 @@ int s1s2k_matmul(const void* a, const void* b, void* b_t, void* c, int M, int N,
   err = tensor_map({a, (uint64_t)K, (uint64_t)M, (uint32_t)(BKB / e), (uint32_t)BM, e}, &ma);
   if (err != cudaSuccess) return (int)err;
   if (i8) {
-    transpose_i8_kernel<<<dim3(N / 64, K / 64), 256, 0, s>>>(
-        static_cast<const unsigned char*>(b), static_cast<unsigned char*>(b_t), K, N);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    if (b) {
+      transpose_i8_kernel<<<dim3(N / 64, K / 64), 256, 0, s>>>(
+          static_cast<const unsigned char*>(b), static_cast<unsigned char*>(b_t), K, N);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
     err = tensor_map({b_t, (uint64_t)K, (uint64_t)N, (uint32_t)BKB, (uint32_t)BN, 1}, &mb);
   } else {
     err = tensor_map({b, (uint64_t)N, (uint64_t)K, 64u, (uint32_t)(BKB / e), 2}, &mb);

@@ -15,7 +15,11 @@ remainder silently; this wrapper raises on a shape that is not such a
 multiple, and on any other dtype. ``wgmma`` reads int8 operands K-major
 only, so the int8 mode transposes B on the card first, into a scratch
 ``(N, K)`` tensor that this wrapper allocates (``b_scratch``); that pass is
-part of the call.
+part of the call. A constant int8 B (the int8 up-convs' weights) is
+packed once instead (:func:`pack_int8_b`: transposed and zero-padded to the
+tiles) and multiplied by :func:`matmul_int8_packed`, which zero-pads A to
+the tiles where its shape needs it (zeros leave the int32 sums exact) and
+launches the product without the transpose.
 
 The wrapper runs its plain PyTorch version when the tensors lie on the CPU
 and launches the kernel when they lie on a CUDA device; it never falls back
@@ -114,3 +118,67 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
 
 matmul.launches = 0
 matmul.mode_launches = {"bf16": 0, "int8": 0}  # the same launches, by input type
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def pack_int8_b(b: torch.Tensor) -> torch.Tensor:
+    """A constant int8 ``b (K, N)`` in the layout the int8 mode reads, made
+    once: ``bᵀ``, K-major, zero-padded to ``(N rounded up to 128, K rounded
+    up to 64)``, contiguous, on b's device."""
+    if b.dim() != 2 or b.dtype != torch.int8:
+        raise TypeError(f"pack_int8_b takes an int8 (K, N) matrix, got {b.dtype} "
+                        f"{tuple(b.shape)}")
+    K, N = b.shape
+    bt = torch.zeros((_round_up(N, TILE_N), _round_up(K, TILE_K[torch.int8])),
+                     dtype=torch.int8, device=b.device)
+    bt[:N, :K] = b.t()
+    return bt
+
+
+def _packed_shapes(a: torch.Tensor, bt: torch.Tensor, n: int):
+    if a.dim() != 2 or bt.dim() != 2 or a.dtype != torch.int8 or bt.dtype != torch.int8:
+        raise TypeError(f"matmul_int8_packed takes int8 a (M, K) and a packed int8 b, got "
+                        f"{a.dtype} {tuple(a.shape)} and {bt.dtype} {tuple(bt.shape)}")
+    M, K = a.shape
+    Np, Kp = bt.shape
+    if Np % TILE_N or Kp % TILE_K[torch.int8] or not 0 < n <= Np or not K <= Kp < K + 64:
+        raise ValueError(f"packed b {tuple(bt.shape)} does not fit a (M, {K}) x (K, {n}) "
+                         f"product (pack_int8_b's layout)")
+    return M, K, Np, Kp
+
+
+def matmul_int8_packed_plain(a: torch.Tensor, bt: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain version of :func:`matmul_int8_packed`: the exact product of
+    ``a`` and the unpadded B, cast to int32 (:func:`matmul_plain`)."""
+    _, K, _, _ = _packed_shapes(a, bt, n)
+    return matmul_plain(a, bt[:n, :K].t(), torch.int32)
+
+
+def matmul_int8_packed(a: torch.Tensor, bt: torch.Tensor, n: int) -> torch.Tensor:
+    """a (M, K) int8 against ``bt = pack_int8_b(b)`` for a (K, n) b → (M, n)
+    int32, exact. On a card A is zero-padded to (M rounded up to 128, the
+    packed K) when its shape is not already that, the kernel computes the
+    padded product and the result is the (M, n) corner of it (a view); it
+    never routes a shape elsewhere."""
+    M, K, Np, Kp = _packed_shapes(a, bt, n)
+    if a.device.type == "cpu":
+        return matmul_int8_packed_plain(a, bt, n)
+    if bt.device != a.device or not bt.is_contiguous() or bt.data_ptr() % 16:
+        raise ValueError(f"packed b must be contiguous, 16-byte aligned, on {a.device}")
+    Mp = _round_up(M, TILE_M)
+    if (Mp, Kp) != (M, K) or not a.is_contiguous() or a.data_ptr() % 16:
+        ap = a.new_zeros((Mp, Kp))
+        ap[:M, :K] = a
+        a = ap
+    k = _build.kernels()
+    c = a.new_empty((Mp, Np), dtype=torch.int32)
+    rc = k.s1s2k_matmul(a.data_ptr(), None, bt.data_ptr(), c.data_ptr(), Mp, Np, Kp,
+                        _MODES[(torch.int8, torch.int32)], a.device.index,
+                        _build.stream(a.device))
+    _build.check(rc, "matmul (int8, packed b)")
+    matmul.launches += 1
+    matmul.mode_launches["int8"] += 1
+    return c[:M, :n]

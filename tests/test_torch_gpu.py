@@ -14,7 +14,10 @@ from s1s2_torch.ops.conv3x3 import (conv3x3_relu, conv3x3_relu_int8,
 from s1s2_torch.ops.fused_elementwise import (ddim_coefs, ddim_update_plain,
                                               fused_ddim_update)
 from s1s2_torch.ops.halo import halo_rows_x2, halo_rows_x2_plain
-from s1s2_torch.ops.matmul import matmul, matmul_plain
+from s1s2_torch.ops.matmul import (matmul, matmul_int8_packed, matmul_int8_packed_plain,
+                                   matmul_plain, pack_int8_b)
+from s1s2_torch.ops.pixel_shuffle import (ps_conv_transpose_2x2_int8,
+                                          ps_conv_transpose_2x2_int8_plain, ps_int8_weight)
 
 
 @pytest.fixture
@@ -242,3 +245,65 @@ def test_gpu_ddim_kernel_on_a_padded_batch(cuda):
     for k, p in zip(fused_ddim_update(x, e, *coefs), ddim_update_plain(x, e, *coefs)):
         assert bool(((k - p).abs() <= 1e-6 * p.abs()).all())
         assert torch.equal(k[2], k[1]) and torch.equal(k[3], k[1])
+
+
+# the int8 up-convs (quant_up), (B, H, W, Ci, Co): base-96's up3/up2/up1 at
+# B=2 (tile multiples), the w24 student's at B=16 and the 24x4's at B=128
+# (K=48 and N=96, N=192: padded), and ragged M
+UP_CONVS = ((2, 32, 32, 768, 384), (2, 64, 64, 384, 192), (2, 128, 128, 192, 96),
+            (16, 32, 32, 192, 96), (16, 64, 64, 96, 48), (16, 128, 128, 48, 24),
+            (128, 8, 8, 192, 96), (128, 16, 16, 96, 48), (128, 32, 32, 48, 24),
+            (3, 5, 7, 48, 24))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,Ci,Co", UP_CONVS)
+def test_gpu_int8_up_conv_bit_equal(cuda, B, H, W, Ci, Co):
+    """The padded int8 matmul on the packed up-conv weights: the int32 sums
+    and the bf16 output (per tensor and per channel) bit-equal to the plain
+    version, and one matmul launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(Ci + Co)
+    w8 = torch.randint(-127, 128, (2, 2, Ci, Co), generator=g, device=cuda).to(torch.int8)
+    wp = ps_int8_weight(w8)
+    x8 = torch.randint(-127, 128, (B * H * W, Ci), generator=g, device=cuda).to(torch.int8)
+    assert torch.equal(matmul_int8_packed(x8, wp, 4 * Co),
+                       matmul_int8_packed_plain(x8, wp, 4 * Co))
+    x = torch.randn((B, H, W, Ci), generator=g, device=cuda).to(torch.bfloat16)
+    deq = torch.rand((Co,), generator=g, device=cuda) * 1e-3
+    b = torch.randn((Co,), generator=g, device=cuda)
+    for sx in (torch.tensor(float(x.float().abs().amax()) / 127.0, device=cuda),
+               x.float().abs().amax(dim=(0, 1, 2)).clamp_min(1e-6) / 127.0):
+        n = matmul.launches
+        got = ps_conv_transpose_2x2_int8(x, wp, sx, deq, b)
+        assert matmul.launches == n + 1
+        assert torch.equal(got, ps_conv_transpose_2x2_int8_plain(x, wp, sx, deq, b))
+
+
+@pytest.mark.gpu
+def test_gpu_quant_up_artifact_loads_on_the_card(cuda, tmp_path):
+    """A quant_up artifact read onto the card packs its up-conv weights for
+    the matmul and runs each up-conv on it (3 launches a forward)."""
+    from s1s2_torch.models.quant import (load_quant, make_sampler_calib, quant_apply,
+                                         quantize_unet, save_quant)
+    from s1s2_torch.models.unet import init_params
+
+    g = torch.Generator().manual_seed(2)
+    gt = torch.rand((2, 32, 32, 4), generator=g)
+    qp = quantize_unet(init_params(4, 8, 1, seed=0), make_sampler_calib(
+        gt, gt, torch.linspace(0.99, 0.01, 1000).numpy(), (500, 20)), base_ch=8, quant_up=True)
+    save_quant(qp, str(tmp_path / "up.int8.msgpack"))
+    back = load_quant(str(tmp_path / "up.int8.msgpack"), cuda)
+    assert sorted(back.up8) == ["up1", "up2", "up3"] and all(w.is_cuda for w in back.up8.values())
+    n = matmul.launches
+    y = quant_apply(back, torch.cat([gt, gt], -1).to(cuda), torch.tensor([500, 20], device=cuda))
+    assert matmul.launches == n + 3 and y.shape == (2, 32, 32, 4) and bool(torch.isfinite(y).all())
+
+
+@pytest.mark.gpu
+def test_gpu_packed_matmul_skips_the_transpose(cuda):
+    """A packed B needs no scratch: the same product as the int8 mode that
+    transposes B itself, at a tile-multiple shape."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randint(-128, 128, (256, 512), generator=g, device=cuda).to(torch.int8)
+    b = torch.randint(-128, 128, (512, 384), generator=g, device=cuda).to(torch.int8)
+    assert torch.equal(matmul_int8_packed(a, pack_int8_b(b), 384), matmul(a, b, torch.int32))

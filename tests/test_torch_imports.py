@@ -113,8 +113,53 @@ SCRIPT = textwrap.dedent("""
                 cache_dir=td + "/cache", device="cpu"))
         pngs = len(glob.glob(td + "/*/*.png") + glob.glob(td + "/*/previews/*.png"))
         noise = sorted(ref_crossval.build_inputs(Path(td) / "cv"))
+    # the serving surface: an int8 artifact with int8 up-convs through the
+    # port's writer and reader, a scene through the infer_scene CLI, one
+    # request to the server, bench_int8 with quant_up, and the dispatcher
+    import contextlib, io, threading, urllib.request
+    from s1s2_torch.__main__ import main as dispatch
+    from s1s2_torch.cli import infer_scene, serve
+    from s1s2_torch.models.quant import make_sampler_calib, quant_apply, quantize_unet
+    from s1s2_torch.models.quant import _nest
+    from s1s2_torch.core.schedule import Schedule
+    from s1s2_torch.tools import bench_int8
+    from s1s2_torch.train.checkpoint import msgpack_serialize
+    st8 = init_params(4, 8, 1, seed=0)
+    gt8 = torch.rand((2, 16, 16, 4))
+    qp8 = quantize_unet(st8, make_sampler_calib(gt8, gt8, Schedule.cosine(1000).alpha_bar_np(),
+                                                (200, 20)), base_ch=8, quant_up=True)
+    with tempfile.TemporaryDirectory() as td:
+        save_quant(qp8, td + "/up.msgpack")
+        up = load_quant(td + "/up.msgpack")
+        y8 = quant_apply(up, torch.cat([gt8, gt8], -1), torch.tensor([200, 20]))
+        with open(td + "/m.msgpack", "wb") as f:
+            f.write(msgpack_serialize(_nest(st8)))
+        np.save(td + "/scene.npy", np.random.default_rng(0).standard_normal((40, 40, 4)))
+        with contextlib.redirect_stdout(io.StringIO()):
+            infer_scene.main(["--scene", td + "/scene.npy", "--ckpt", td + "/m.msgpack",
+                              "--out_dir", td + "/o", "--base_ch", "8", "--patch_size", "32",
+                              "--stride", "24", "--ddim_steps", "2", "--device", "cpu"])
+        scene_shape = list(np.load(td + "/o/scene_pred.npy").shape)
+        httpd = serve.build_server(serve.build_parser().parse_args(
+            ["--int8_ckpt", td + "/up.msgpack", "--port", "0", "--patch_size", "16",
+             "--batch_size", "2", "--device", "cpu"]))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        buf = io.BytesIO()
+        np.savez(buf, cond=np.zeros((3, 16, 16, 4), np.float32))
+        host, port = httpd.server_address[:2]
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://{{host}}:{{port}}/infer", data=buf.getvalue(), method="POST")) as resp:
+            served = list(np.load(io.BytesIO(resp.read())).shape)
+        httpd.shutdown()
+        httpd.server_close()
+        b8 = bench_int8.run(batch=2, steps=1, iters=1, quant_up=True, size=16, base_ch=8,
+                            device="cpu", emit=lambda _: None)
+    rc_train = dispatch(["train"])
     loaded = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
     print(json.dumps({{"modules": mods, "shape": list(y.shape),
+                      "up_convs": sorted(up.up8), "up_forward": list(y8.shape),
+                      "scene_shape": scene_shape, "served": served,
+                      "bench_int8_paths": [r["path"] for r in b8["rows"]], "rc_train": rc_train,
                       "finite": bool(torch.isfinite(y).all()), "loaded": loaded,
                       "dpm_shape": r["shape"], "dpm_finite": r["finite"],
                       "cfg_checked": cfg["quality_checked"] in (True, False),
@@ -139,7 +184,15 @@ def test_port_runs_with_jax_flax_msgpack_ml_dtypes_and_s1s2_blocked():
             "s1s2_torch.data.loader", "s1s2_torch.cli.evaluate",
             "s1s2_torch.cli.quantize", "s1s2_torch.models.convert",
             "s1s2_torch.eval.baselines", "s1s2_torch.viz.render",
-            "s1s2_torch.tools.ref_crossval"} <= set(out["modules"])
+            "s1s2_torch.tools.ref_crossval", "s1s2_torch.eval.scene",
+            "s1s2_torch.data.patchify", "s1s2_torch.cli.infer_scene", "s1s2_torch.cli.serve",
+            "s1s2_torch.__main__", "s1s2_torch.tools.bench_int8",
+            "s1s2_torch.tools.bench_scene", "s1s2_torch.tools.bench_serve",
+            "s1s2_torch.ops.pixel_shuffle"} <= set(out["modules"])
+    assert out["up_convs"] == ["up1", "up2", "up3"] and out["up_forward"] == [2, 16, 16, 4]
+    assert out["scene_shape"] == [4, 40, 40] and out["served"] == [3, 16, 16, 4]
+    assert out["bench_int8_paths"] == ["bf16", "int8", "int8_quant_up"]
+    assert out["rc_train"] == 2
     assert out["dpm_shape"] == [1, 16, 16, 4] and out["dpm_finite"]
     assert out["cfg_checked"] and out["cfg_shape"] == [1, 16, 16, 4] and out["int8_convs"] == 10
     assert out["table_modes"] == ["baseline_bicubic", "baseline_linear", "ddim", "limitation"]

@@ -154,13 +154,36 @@ def test_seeded_calibration_is_deterministic():
                                 {"quant_up": True, "act_perchannel": True},
                                 {"quant_up": True, "bf16_blocks": ("conv1",)}])
 def test_options_not_ported_yet_raise(case, kw):
-    """quant_up (int8 transposed convs) is the one option not ported: it
-    raises with any other option beside it, in both entry points."""
-    with pytest.raises(NotImplementedError, match="quant_up"):
-        tq.quantize_unet(case["state"], case["tcal"][:1], base_ch=24, stem_s2d=4, **kw)
-    with pytest.raises(NotImplementedError, match="quant_up"):
-        tq.quantize_weights(case["state"], quant_up=True,
-                            bf16_blocks=kw.get("bf16_blocks", ()))
+    """quant_up (int8 transposed convs) was the one option not ported, and
+    these cases checked that it raised; it is ported now, with any other
+    option beside it, and each case holds it to the JAX package: both entry
+    points quantize the same convs, the int8 weights and biases (per-channel
+    scales folded in: the JAX scales) are JAX's bit for bit, and the forward
+    with JAX's scales is within test_int8_forward_against_jax's bounds."""
+    jqp = jq.quantize_unet(case["tree"], case["jcal"], base_ch=24, stem_s2d=4, **kw)
+    tqp = tq.quantize_unet(case["state"], case["tcal"], base_ch=24, stem_s2d=4, **kw)
+    assert sorted(map(_j, tqp.w8)) == sorted(jqp.w8)
+    assert {"up3", "up2", "up1"} <= set(tqp.w8) and ("conv1.conv1" in tqp.w8) == (
+        "bf16_blocks" not in kw)
+    pc = kw.get("act_perchannel", False)
+    scales = {k: (torch.from_numpy(np.asarray(jqp.act_scale[_j(k)])) if pc
+                  else jqp.act_scale[_j(k)]) for k in tqp.act_scale}
+    w8, bias = tq.quantize_weights(case["state"], quant_up=True,
+                                   act_scales=scales if pc else None,
+                                   bf16_blocks=kw.get("bf16_blocks", ()))
+    for name, (q, sw) in w8.items():
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jqp.w8[_j(name)][0]))
+        np.testing.assert_array_equal(sw.numpy(), np.asarray(jqp.w8[_j(name)][1]))
+        np.testing.assert_array_equal(bias[name].numpy(), np.asarray(jqp.bias[_j(name)]))
+    same = tq.QuantParams(case["state"], w8, bias, scales, 4, 24, 4, pc)
+    x, t = case["x"], case["t"]
+    ref = np.asarray(jq.quant_apply(jqp, jnp.asarray(x), jnp.asarray(t)))
+    got = tq.quant_apply(same, torch.from_numpy(x), torch.from_numpy(t)).numpy()
+    bf16 = np.asarray(JUNet(out_ch=4, base_ch=24, stem_s2d=4).apply(
+        {"params": case["tree"]}, jnp.asarray(x), jnp.asarray(t)))
+    d = np.abs(got - ref)
+    assert d.mean() <= 0.6 * np.abs(ref - bf16).mean(), (d.mean(), np.abs(ref - bf16).mean())
+    assert d.max() <= 0.25 * np.abs(ref).max(), d.max()
 
 
 def test_quant_params_copy_to_a_device_is_the_same_model(case):

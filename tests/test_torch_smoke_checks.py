@@ -22,14 +22,15 @@ chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
 
-def _forward():
-    """A calibrated base-8 int8 model, one 16² input, its ε̂ and its ops."""
+def _forward(quant_up=False):
+    """A calibrated base-8 int8 model (with ``quant_up``, its up-convs in int8
+    too), one 16² input, its ε̂ and its ops."""
     state = init_params(4, 8, 1, seed=0)
     rng = np.random.default_rng(0)
     cond, gt = (torch.from_numpy(rng.random((2, 16, 16, 4), dtype=np.float32)) for _ in "ab")
     cal = quant.make_sampler_calib(gt, cond, np.linspace(0.99, 0.01, 1000).astype(np.float32),
                                    (500,))
-    qp = quant.quantize_unet(state, cal, base_ch=8)
+    qp = quant.quantize_unet(state, cal, base_ch=8, quant_up=quant_up)
     x = torch.from_numpy(rng.random((1, 16, 16, 8), dtype=np.float32))
     t = torch.tensor([200], dtype=torch.int32)
     eps, calls = chip_smoke.record_ops(quant, qp, x, t)
@@ -66,9 +67,19 @@ def _nudged(calls, name, ulps):
     return calls[:i] + [(op, args, flat.reshape(out.shape))] + calls[i + 1:], i
 
 
-@pytest.mark.parametrize("name", ["conv3x3_relu_int8", "max_pool2"])
+def test_record_ops_sees_the_int8_up_convs_of_quant_up():
+    qp, x, t, eps, calls = _forward(quant_up=True)
+    names = [c[0] for c in calls]
+    assert len(names) == 20 and names.count("ps_conv_transpose_2x2_int8") == 3
+    assert "ps_conv_transpose_2x2" not in names
+    rows = chip_smoke.check_ops(torch, F, quant, "cpu", calls)
+    assert all(r[1] == 0 for r in rows)
+
+
+@pytest.mark.parametrize("name", ["conv3x3_relu_int8", "max_pool2",
+                                  "ps_conv_transpose_2x2_int8"])
 def test_check_ops_requires_bit_equality_of_int8_convs_and_pools(name):
-    calls, i = _nudged(_forward()[-1], name, 1)
+    calls, i = _nudged(_forward(quant_up=name == "ps_conv_transpose_2x2_int8")[-1], name, 1)
     with pytest.raises(AssertionError, match=f"op {i} {name} "):
         chip_smoke.check_ops(torch, F, quant, "cpu", calls)
 
