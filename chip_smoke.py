@@ -126,6 +126,24 @@ Phases, each printing its own seconds:
    table) within 0.02 of the committed 0.28453 (int8 artifact) and 0.28051
    (``--ckpt``, bf16), ``/healthz`` reporting the signature; and one request
    to the cfg_v teacher at g=3, 5 steps: finite, the right shape.
+4l. Training (``train/loop.py``, ``train/trainer.py``; no hand-written
+   kernel: the step runs PyTorch's autograd conv, as the JAX package trains
+   through XLA's conv, and every path here must launch none of the port's
+   kernels): (a) the train step at base 16, 64², B=4, 3 steps on jax's
+   threefry draws, card against the CPU in f32 (TF32 off) and bf16: the
+   losses, per-channel losses, step-0 gradients, parameter and EMA updates
+   and Adam's moments within 1e-2 (f32) and 2 (bf16) times the CPU's own
+   bf16-vs-f32 distance; then one non-finite batch, skipped with the params
+   and EMA kept; the card's steps run under ``torch.cuda.
+   set_sync_debug_mode("error")``, so a host sync in them fails the phase.
+   (b) ``tools.bench_train`` at base 96, 256², bf16, B=8, 32 and 64, remat
+   off and on: patches/s, the share of the reckoned bound (3 or 4 forwards'
+   conv operations at ``PEAK_OPS_PER_S["bf16"]``), peak memory, every loss
+   finite. (c) ``python -m s1s2_torch train`` in process on 32 synthetic
+   files of 256² at base 96, B=8: two epochs, and one epoch then
+   ``--resume`` for the second, under deterministic cuDNN: the state files
+   and the final EMA files bit-equal, the final/_last/_best files loading
+   through ``load_model``, one metrics line an epoch.
 5. Timing at B=128 with CUDA events: each kernel at each path shape beside
    its plain version, ``F.conv2d`` (bf16 mode only) and its bound.
 5b. Timing at the base-96 shapes (bf16 at line 1's B=128, int8 at line 2's
@@ -136,7 +154,7 @@ Phases, each printing its own seconds:
    their plain versions, ``torch.matmul``/``torch._int_mm`` and
    ``x[1:-1]*2``.
 
-Each path of 4-4k is driven with every launch count set to 0 just before it
+Each path of 4-4l is driven with every launch count set to 0 just before it
 and read just after; a kernel of the path that was not launched fails it.
 Then a ``{"kernels": [...]}`` line (the conv rows' times are those of the
 24x4 main path at B=128, and the per-channel int8 row's those of the CFG
@@ -145,9 +163,10 @@ net's shapes at B=64; the matmul has a row per mode, bf16 → bf16 beside
 its int8 mode on the packed up-conv weights of 4i; launches are summed over
 the paths), the card line
 again, and last ``{"ok": true, "device": {...}}``. Any failure raises, and
-no result is printed. The port never calls cuDNN, cuBLAS's ``torch.matmul``
-on the probe's operands or ``torch._int_mm``; they are timed here only as
-yardsticks.
+no result is printed. The port's inference paths never call cuDNN,
+cuBLAS's ``torch.matmul`` on the probe's operands or ``torch._int_mm``; they
+are timed here only as yardsticks. Its training path (4l) runs cuDNN's conv
+through autograd, where the JAX package runs XLA's.
 """
 
 import contextlib
@@ -193,6 +212,15 @@ SCENE_SIZE, SCENE_STEPS, BENCH_SCENE = 384, 2, 1536  # 4j
 SERVE_EVAL, SERVE_SEEDS = (96, 128), 4
 SERVE_ANCHORS = {"int8": 0.28453, "bf16": 0.28051}
 SERVE_N_LAT, SERVE_SAT_S, SERVE_THREADS = 10, 5.0, 4
+# 4l: (a) the train step card against CPU: base, size, batch, steps; each
+# quantity within a multiple of the CPU's own bf16-against-f32 distance, 1e-2
+# of it in f32 (TF32 off) and twice it in bf16 (two bf16 evaluations, each
+# that far from f32); (b) bench_train's batches; (c) the trainer: files,
+# base, batch, epochs
+TRAIN_CHECK = (16, 64, 4, 3)
+TRAIN_SLACK = {"f32": 1e-2, "bf16": 2.0}
+TRAIN_BENCH_BATCHES, TRAIN_BENCH_ITERS = (8, 32, 64), 5
+TRAIN_RUN = (32, 96, 8, 2)
 QUANT_OPS = ("conv3x3_relu", "conv3x3_relu_int8", "ps_conv_transpose_2x2",
              "ps_conv_transpose_2x2_int8", "conv1x1", "max_pool2")
 # the ops a forward must give bit for bit on the card and the CPU
@@ -419,6 +447,176 @@ def check_ops(torch, F, quant, what, calls):
         if not ok:
             raise AssertionError(f"{what}: op {i} {name} on the card disagrees with the CPU")
     return out_rows
+
+
+def rel(a, b):
+    """‖a − b‖ / ‖b‖ over all elements (0 when both are 0)."""
+    d, n = float((a - b).double().norm()), float(b.double().norm())
+    return d / n if n else d
+
+
+def train_phase(torch, dev, card, drive, require, path_launches):
+    """4l: the train step on the card against the CPU, bench_train at full
+    width, and the trainer with a resume (see the module docstring)."""
+    import numpy as np
+
+    from s1s2_torch.__main__ import main as dispatch
+    from s1s2_torch.core import random
+    from s1s2_torch.core.schedule import Schedule
+    from s1s2_torch.data.synthetic import make_synthetic_patches
+    from s1s2_torch.models.unet import UNetSmall, init_params
+    from s1s2_torch.tools import bench_train
+    from s1s2_torch.train.checkpoint import load_model, reference_artifact_paths, restore_state
+    from s1s2_torch.train.checkpoint import flatten
+    from s1s2_torch.train.loop import TrainConfig, create_train_state, make_train_step, upload
+
+    # (a) card against CPU on jax's threefry draws, f32 and bf16
+    base, size, B, steps = TRAIN_CHECK
+    params = init_params(4, base, 1, seed=0, in_ch=8)
+    cfg, sched, key = TrainConfig(T=1000), Schedule.cosine(1000), random.PRNGKey(1338)
+    rng = np.random.default_rng(0)
+    batch = (rng.standard_normal((B, size, size, 4)).astype(np.float32),
+             rng.random((B, size, size, 4)).astype(np.float32),
+             (rng.random((B, size, size)) > 0.1).astype(np.float32))
+    bad = (batch[0].copy(), batch[1], batch[2])
+    bad[0][1, 2, 3, 0] = np.nan
+
+    def run(device, dtype):
+        step = make_train_step(UNetSmall(4, base, 1, 8, dtype, autograd=True), sched, cfg,
+                               draws="threefry")
+        state = create_train_state(params, cfg, device)
+        on_card = device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize(device)
+            torch.cuda.set_sync_debug_mode("error")  # any host sync in the step raises
+        try:
+            t, noise, _ = step.draw(key, 0, B, batch[1].shape, device)
+            _, _, _, grads = step.loss_and_grads(
+                state.params, state.layout, *(upload(a, device) for a in batch), t, noise)
+            ms = []
+            for _ in range(steps):
+                state, m = step(state, batch, key)
+                ms.append(m)
+            skipped_state, m_bad = step(state, bad, key)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+        cpu = lambda t: t.detach().to("cpu")  # noqa: E731
+        return {"loss": torch.stack([cpu(m["loss"]) for m in ms]),
+                "ch_losses": torch.stack([cpu(m["ch_losses"]) for m in ms]),
+                "grads": cpu(grads), "grad_norm": cpu(grads).norm(),
+                "update": cpu(state.params) - state.layout.flatten(params),
+                "ema_update": cpu(state.ema_params) - state.layout.flatten(params),
+                "mu": cpu(state.opt_state.mu), "nu": cpu(state.opt_state.nu),
+                "skipped": int(state.skipped), "skip_then": int(skipped_state.skipped),
+                "skip_loss": float(m_bad["loss"]),
+                "skip_kept": bool(torch.equal(cpu(skipped_state.params), cpu(state.params))
+                                  and torch.equal(cpu(skipped_state.ema_params),
+                                                  cpu(state.ema_params)))}
+
+    keys = ("loss", "ch_losses", "grads", "update", "ema_update", "mu", "nu")
+    runs = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for where in ("cpu", "card"):
+            runs[name, where] = drive(f"train step {name} {where}", lambda d=dtype, w=where: (
+                run(torch.device("cpu") if w == "cpu" else dev, d)))
+    own = {k: rel(runs["bf16", "cpu"][k], runs["f32", "cpu"][k]) for k in keys}
+    for name in ("f32", "bf16"):
+        c, h = runs[name, "card"], runs[name, "cpu"]
+        for k in keys:
+            tol = TRAIN_SLACK[name] * own[k]
+            d = rel(c[k], h[k])
+            print(f"train step {name} card vs CPU (base {base}, {size}², B={B}, {steps} steps, "
+                  f"threefry draws): {k} rel {d:.3e} (tolerance {tol:.3e} = {TRAIN_SLACK[name]} "
+                  f"x the CPU's bf16-vs-f32 {own[k]:.3e})", flush=True)
+            require(d <= tol, f"train step {name}: {k} card vs CPU {d} > {tol}")
+        print(f"train step {name}: losses card {c['loss'].tolist()} CPU {h['loss'].tolist()}, "
+              f"grad norm card {float(c['grad_norm']):.6g} CPU {float(h['grad_norm']):.6g}",
+              flush=True)
+        for r, where in ((c, "card"), (h, "CPU")):
+            require(r["skipped"] == 0 and r["skip_then"] == 1 and r["skip_kept"]
+                    and r["skip_loss"] != r["skip_loss"],
+                    f"train step {name} {where}: the non-finite batch was not skipped cleanly "
+                    f"(skipped {r['skipped']} then {r['skip_then']}, params kept "
+                    f"{r['skip_kept']}, loss {r['skip_loss']})")
+        require(all(v == 0 for v in path_launches[f"train step {name} card"].values()),
+                f"train step {name}: launched a hand-written kernel")
+    print("train step: one non-finite batch skipped on card and CPU (skipped 0 -> 1, params and "
+          "EMA unchanged, loss NaN); the card's steps ran under sync debug mode 'error'",
+          flush=True)
+
+    # (b) bench_train at full width
+    n_files, base96, tb, epochs = TRAIN_RUN
+    rows = drive("train bench", lambda: bench_train.main(
+        [str(b) for b in TRAIN_BENCH_BATCHES] + ["--iters", str(TRAIN_BENCH_ITERS), "--size",
+                                                 str(SIZE), "--base_ch", str(base96),
+                                                 "--device", str(dev)],
+        emit=lambda line: print(f"bench_train: {line}", flush=True)))
+    require(all(v == 0 for v in path_launches["train bench"].values()),
+            "bench_train launched a hand-written kernel")
+    for r in rows:
+        require("error" not in r and np.isfinite(r["loss"]) and r["skipped"] == 0,
+                f"bench_train B={r['B']} remat={r['remat']}: {r}")
+        bound = bench_train.step_ops_per_sample(base96, SIZE, r["remat"]) / PEAK_OPS_PER_S["bf16"]
+        print(f"train base-{base96} {SIZE}² bf16 B={r['B']} remat={r['remat']}: "
+              f"{r['train_patches_per_s']:.3f} patches/s, {r['train_patches_per_s'] * bound:.4f} "
+              f"of the bound ({1 / bound:.1f} patches/s), peak memory "
+              f"{r['peak_mem_bytes'] / 2 ** 30:.2f} GiB, loss {r['loss']:.6g} on {card}",
+              flush=True)
+
+    # (c) the trainer through the dispatcher; bit-equal resume under
+    # deterministic cuDNN
+    with tempfile.TemporaryDirectory() as td, torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        make_synthetic_patches(f"{td}/p", n=n_files, size=SIZE, seed=0)
+
+        def train(out, n_epochs, resume):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = dispatch(["train", "--patch_dir", f"{td}/p", "--model_path",
+                               f"{out}/m.msgpack", "--base_ch", str(base96), "--batch_size",
+                               str(tb), "--epochs", str(n_epochs), "--metrics_jsonl",
+                               f"{out}/m.jsonl", "--save_state_dir", f"{out}/st", "--device",
+                               str(dev)] + (["--resume"] if resume else []))
+            require(rc == 0, f"train exited {rc}")
+            return [json.loads(ln) for ln in buf.getvalue().splitlines()]
+
+        t0 = time.perf_counter()
+        whole = drive("train cli", lambda: train(f"{td}/a", epochs, False))
+        t_whole = time.perf_counter() - t0
+        first = train(f"{td}/b", epochs - 1, False)
+        resumed = drive("train cli resumed", lambda: train(f"{td}/b", epochs, True))
+        for path in ("train cli", "train cli resumed"):
+            require(all(v == 0 for v in path_launches[path].values()),
+                    f"{path}: launched a hand-written kernel")
+        template = UNetSmall(4, base96, 1, 8).state_dict()
+        for out in ("a", "b"):
+            for f in reference_artifact_paths(f"{td}/{out}/m.msgpack"):
+                loaded = load_model(template, f)
+                require(all(torch.isfinite(v).all() for v in loaded.values()),
+                        f"{f}: non-finite weights")
+            with open(f"{td}/{out}/m.jsonl") as fh:
+                lines = [json.loads(ln) for ln in fh]
+            require([ln["epoch"] for ln in lines] == list(range(1, epochs + 1))
+                     and all(np.isfinite(ln["avg_loss"]) for ln in lines),
+                     f"metrics jsonl {out}: {lines}")
+        sa, sb = restore_state(f"{td}/a/st"), restore_state(f"{td}/b/st")
+        fa, fb = flatten(sa), flatten(sb)
+        same = fa.keys() == fb.keys() and all(
+            torch.equal(fa[k], fb[k]) if torch.is_tensor(fa[k]) else fa[k] == fb[k] for k in fa)
+        with open(f"{td}/a/m.msgpack", "rb") as fh_a, open(f"{td}/b/m.msgpack", "rb") as fh_b:
+            same_final = fh_a.read() == fh_b.read()
+        ep_whole = [(ln["epoch"], ln["avg_loss"], ln["epoch_time_s"]) for ln in whole
+                    if "avg_loss" in ln]
+        at = [ln for ln in resumed if "resumed_at_step" in ln]
+        print(f"train cli base {base96}, {n_files} files of {SIZE}², B={tb}, {epochs} epochs: "
+              f"{t_whole:.2f} s with set-up, (epoch, avg loss, seconds) {ep_whole}; resumed at "
+              f"{at}; state (params, Adam, EMA, "
+              f"step, skipped) bit-equal to the unbroken run: {same}; final EMA file "
+              f"bit-equal: {same_final}", flush=True)
+        require(len(first) > 0 and same and same_final and int(sa["step"]) == epochs * (
+            n_files // tb), "the resumed run differs from the unbroken one")
+    return rows
 
 
 def main():
@@ -1313,6 +1511,11 @@ def main():
                     f"serve cfg: launches {path_launches['serve cfg']}")
         torch.cuda.empty_cache()
 
+    with Phase("training: the train step card vs CPU, bench_train at base 96, the trainer "
+               "with a resume"):
+        train_rows = train_phase(torch, dev, card, drive, require, path_launches)
+        torch.cuda.empty_cache()
+
     with Phase("probe path: probe_int8 all"):
         probe = drive("probe", lambda: probe_int8.main(["all"]))
         n = path_launches["probe"]
@@ -1508,6 +1711,9 @@ def main():
           f"B={cfg_line['batch']}, ladder "
           + ", ".join(f"{ln['metric'].split('_w')[1].split('_')[0]} {ln['value']:.1f}"
                       for ln in ladder) + " patches/s", flush=True)
+    print(f"training on {card}, base 96, {SIZE}², bf16, patches/s: " + ", ".join(
+        f"B={r['B']}{' remat' if r['remat'] else ''} {r['train_patches_per_s']:.2f}"
+        for r in train_rows), flush=True)
     print(f"total launches by path: {path_launches}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

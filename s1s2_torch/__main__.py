@@ -12,10 +12,10 @@ COMMANDS = {
     "quantize": "s1s2_torch.cli.quantize",
     "infer_scene": "s1s2_torch.cli.infer_scene",
     "serve": "s1s2_torch.cli.serve",
+    "train": "s1s2_torch.cli.train",
 }
 NOT_PORTED = {
-    "train": "ROADMAP §1 item 6 (training and distillation)",
-    "distill": "ROADMAP §1 item 6 (training and distillation)",
+    "distill": "ROADMAP §1 item 6 (6c, distillation)",
     "patchify": "ROADMAP §1 item 7",
     "convert_ckpt": "ROADMAP §1 item 7",
     "validate_parity": "ROADMAP §1 item 7",

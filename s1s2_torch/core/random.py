@@ -129,6 +129,25 @@ def random_bits(key, shape: Shape) -> np.ndarray:
     return _draw(key, shape, lambda b: b, np.uint32)
 
 
+def randint(key, shape: Shape, minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(key, shape, minval, maxval)`` in int32 for bounds
+    that fit int32 (jax's ``_randint``): two streams of 32 bits from
+    ``split(key)``, reduced modulo the span as ``(hi % span)·(2³² % span) +
+    lo % span`` in uint32 arithmetic; ``maxval <= minval`` returns
+    ``minval``."""
+    info = np.iinfo(np.int32)
+    if not (info.min <= minval <= info.max and info.min <= maxval <= info.max):
+        raise ValueError(f"randint bounds must fit int32, got [{minval}, {maxval})")
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = np.uint32(max(maxval - minval, 1))
+    with np.errstate(over="ignore"):
+        mult = np.uint32(2 ** 16) % span
+        mult = mult * mult % span
+        off = ((higher % span) * mult + lower % span) % span
+        return (np.int32(minval) + off.astype(np.int32)).astype(np.int32)
+
+
 def _fma32(a, b, c) -> np.ndarray:
     """float32 a·b + c with one rounding, as XLA's fused multiply-add (the
     product of two float32 values is exact in float64; the float64 sum is

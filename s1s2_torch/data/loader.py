@@ -1,18 +1,21 @@
-"""Ordered evaluation batches from an npz patch dataset.
+"""Training and evaluation batches from an npz patch dataset.
 
-Port of the JAX package's ``data/loader.py`` (``eval_batches`` and
-``_assemble``): contiguous NHWC float32 numpy batches, missing masks as all
-ones, the last batch padded with its last item so every batch has one
-shape, and the next batch's npz decompression prefetched on one worker
-thread while the current one runs; and ``MmapCache``, which decompresses
-the dataset once into memory-mapped ``.npy`` files and serves whole batches.
+Port of the JAX package's ``data/loader.py``: contiguous NHWC float32 numpy
+batches with missing masks as all ones (``_assemble``); ``batch_iterator``,
+one shuffled training epoch; ``eval_batches``, ordered batches with the
+last padded with its last item so every batch has one shape; each
+prefetches the next batch's npz decompression on one worker thread while
+the current one runs; and ``MmapCache``, which decompresses the dataset
+once into memory-mapped ``.npy`` files and serves whole batches.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import json
 import os
+import threading
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -80,6 +83,67 @@ def _assemble(ds, idxs) -> Batch:
         masks.append(m if m is not None else np.ones(d["target"].shape[:2], np.float32))
     return (np.stack(conds).astype(np.float32), np.stack(tgts).astype(np.float32),
             np.stack(masks).astype(np.float32))
+
+
+def batch_iterator(ds, batch_size: int, *, shuffle: bool = True, drop_last: bool = True,
+                   seed: int = 1337, epoch: int = 0, prefetch: bool = True,
+                   process_index: int = 0, process_count: int = 1) -> Iterator[Batch]:
+    """One epoch of batches, shuffled by ``default_rng(seed + epoch)``.
+
+    ``batch_size`` is the global batch: every process shuffles alike and
+    assembles its contiguous 1/``process_count`` slice of each global batch
+    (with more than one process, ragged tails are dropped so every process
+    sees the same number of batches). One batch is assembled ahead on a
+    worker thread."""
+    if batch_size % process_count:
+        raise ValueError(f"global batch {batch_size} not divisible by {process_count} processes")
+    local = batch_size // process_count
+    n = len(ds)
+    order = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed + epoch).shuffle(order)
+    stops = range(0, n - batch_size + 1 if drop_last else n, batch_size)
+    globals_ = [order[s:s + batch_size] for s in stops]
+    if process_count > 1:
+        globals_ = [g for g in globals_ if len(g) == batch_size]
+    chunks = [g[process_index * local:(process_index + 1) * local] for g in globals_]
+    if not prefetch or len(chunks) <= 1:
+        for c in chunks:
+            yield _assemble(ds, c)
+        return
+
+    q: collections.deque = collections.deque()
+    lock = threading.Condition()
+    done = object()
+
+    def worker():
+        end = done
+        try:
+            for c in chunks:
+                b = _assemble(ds, c)
+                with lock:
+                    while len(q) >= 2:
+                        lock.wait()
+                    q.append(b)
+                    lock.notify_all()
+        except Exception as e:  # handed to the consumer, which raises it
+            end = e
+        with lock:
+            q.append(end)
+            lock.notify_all()
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        with lock:
+            while not q:
+                lock.wait()
+            item = q.popleft()
+            lock.notify_all()
+        if item is done:
+            break
+        if isinstance(item, Exception):
+            raise item
+        yield item
 
 
 def eval_batches(ds, batch_size: int, max_files: Optional[int] = None,

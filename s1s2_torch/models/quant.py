@@ -41,6 +41,7 @@ from s1s2_torch.ops.conv3x3 import conv3x3_relu, conv3x3_relu_int8, packed_int8_
 from s1s2_torch.ops.pixel_shuffle import (depth_to_space, ps_conv_transpose_2x2,
                                           ps_conv_transpose_2x2_int8, ps_int8_weight)
 from s1s2_torch.train.checkpoint import load_params, msgpack_serialize
+from s1s2_torch.train.checkpoint import nest as _nest
 
 Scale = Union[float, torch.Tensor]
 
@@ -340,18 +341,6 @@ def make_quant_cfg_denoise_fn(qp: QuantParams, cond: torch.Tensor, guidance_scal
 
 def _jax_name(name: str) -> str:
     return name.replace(".", "/")
-
-
-def _nest(flat: Dict[str, torch.Tensor]) -> Dict:
-    """{"down1.conv1.kernel": t} → {"down1": {"conv1": {"kernel": t}}}."""
-    tree: Dict = {}
-    for key, v in flat.items():
-        *path, leaf = key.split(".")
-        node = tree
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = v
-    return tree
 
 
 def save_quant(qp: QuantParams, path: str) -> None:

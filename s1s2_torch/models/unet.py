@@ -13,6 +13,15 @@ parameters are f32, as in the JAX model. The JAX model's two up paths
 tree and compute the same function; the port runs the ``ps`` form, so a
 tree from either loads as it is. :func:`init_params` gives a freshly
 initialised tree with flax's own bits.
+
+``UNetSmall(autograd=True)`` is the training path: the 3×3 convs run
+through ``ops/conv3x3.conv3x3_relu_train`` (``F.conv2d``, differentiable)
+instead of the kernel, which has no backward, and the pools through
+:func:`max_pool2_train`, whose backward routes a tie as JAX does;
+``remat=True`` then recomputes each double-conv block in the backward pass
+(``torch.utils.checkpoint``), as the JAX model's ``nn.remat`` does. The
+parameters stay ``requires_grad=False``: a trainer differentiates its own
+copy (``train/loop.py``, through ``torch.func.functional_call``).
 """
 
 from __future__ import annotations
@@ -21,10 +30,12 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from s1s2_torch.core import random
-from s1s2_torch.ops.conv3x3 import conv3x3_relu
+from s1s2_torch.ops.conv3x3 import conv3x3_relu, conv3x3_relu_train
 from s1s2_torch.ops.pixel_shuffle import (depth_to_space, ps_conv_transpose_2x2,
                                           space_to_depth)
 
@@ -40,6 +51,15 @@ def max_pool2(x: torch.Tensor) -> torch.Tensor:
     """2×2 stride-2 max-pool, NHWC."""
     B, H, W, C = x.shape
     return x.reshape(B, H // 2, 2, W // 2, 2, C).amax(dim=(2, 4))
+
+
+def max_pool2_train(x: torch.Tensor) -> torch.Tensor:
+    """2×2 stride-2 max-pool, NHWC, whose backward gives each window's
+    gradient to its first largest element in row-major order, as JAX's
+    gradient of ``nn.max_pool`` does (``amax`` would split it among tied
+    elements, which bf16 makes common). The same values as
+    :func:`max_pool2`."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 
 def conv1x1(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -61,26 +81,45 @@ def input_map(x_and_cond: torch.Tensor, t_idx: torch.Tensor, s: int,
     return torch.cat([xf, t_map], dim=-1).to(dtype).contiguous()
 
 
+def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+            autograd: bool) -> torch.Tensor:
+    if autograd:
+        return conv3x3_relu_train(x, kernel, bias)
+    # the bias rounds to the compute dtype first, as flax's nn.Conv does
+    return conv3x3_relu(x, kernel.to(x.dtype).contiguous(), bias.to(x.dtype).float())
+
+
+def double_conv(x, k1, b1, k2, b2, autograd: bool) -> torch.Tensor:
+    return conv3x3(conv3x3(x, k1, b1, autograd), k2, b2, autograd)
+
+
 class Conv3x3(nn.Module):
-    def __init__(self, ci: int, co: int):
+    def __init__(self, ci: int, co: int, autograd: bool = False):
         super().__init__()
         self.kernel = _param(3, 3, ci, co)
         self.bias = _param(co)
+        self.autograd = autograd
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # the bias rounds to the compute dtype first, as flax's nn.Conv does
-        return conv3x3_relu(x, self.kernel.to(x.dtype).contiguous(),
-                            self.bias.to(x.dtype).float())
+        return conv3x3(x, self.kernel, self.bias, self.autograd)
 
 
 class DoubleConv(nn.Module):
-    def __init__(self, ci: int, co: int):
+    def __init__(self, ci: int, co: int, autograd: bool = False, remat: bool = False):
         super().__init__()
-        self.conv1 = Conv3x3(ci, co)
-        self.conv2 = Conv3x3(co, co)
+        self.conv1 = Conv3x3(ci, co, autograd)
+        self.conv2 = Conv3x3(co, co, autograd)
+        self.autograd, self.remat = autograd, remat
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2(self.conv1(x))
+        ps = (self.conv1.kernel, self.conv1.bias, self.conv2.kernel, self.conv2.bias)
+        if self.remat and torch.is_grad_enabled():
+            # the parameters go in as arguments, so the recomputation reads the
+            # tensors this forward read (functional_call restores the module's
+            # own before the backward runs)
+            return checkpoint(double_conv, x, *ps, self.autograd, use_reentrant=False,
+                              preserve_rng_state=False)
+        return double_conv(x, *ps, self.autograd)
 
 
 class UpPS(nn.Module):
@@ -105,33 +144,40 @@ class Conv1x1(nn.Module):
 
 class UNetSmall(nn.Module):
     """``forward(x_and_cond (B,H,W,C_xt+C_cond), t_idx (B,)) → (B,H,W,out_ch)``
-    float32. ``in_ch`` counts the x_t and cond channels together."""
+    float32. ``in_ch`` counts the x_t and cond channels together.
+    ``autograd`` selects the training path and ``remat`` its recomputed
+    blocks (module docstring); both are off for inference."""
 
     def __init__(self, out_ch: int = 4, base_ch: int = 96, stem_s2d: int = 1,
-                 in_ch: int = 8, compute_dtype: torch.dtype = torch.bfloat16):
+                 in_ch: int = 8, compute_dtype: torch.dtype = torch.bfloat16,
+                 autograd: bool = False, remat: bool = False):
         super().__init__()
+        if remat and not autograd:
+            raise ValueError("remat recomputes the training path: it needs autograd=True")
         b, s = base_ch, stem_s2d
         self.out_ch, self.base_ch, self.stem_s2d = out_ch, base_ch, stem_s2d
-        self.compute_dtype = compute_dtype
-        self.inc = Conv3x3(in_ch * s * s + 1, b)
-        self.down1 = DoubleConv(b, 2 * b)
-        self.down2 = DoubleConv(2 * b, 4 * b)
-        self.down3 = DoubleConv(4 * b, 8 * b)
+        self.compute_dtype, self.autograd = compute_dtype, autograd
+        blk = lambda ci, co: DoubleConv(ci, co, autograd, remat)  # noqa: E731
+        self.inc = Conv3x3(in_ch * s * s + 1, b, autograd)
+        self.down1 = blk(b, 2 * b)
+        self.down2 = blk(2 * b, 4 * b)
+        self.down3 = blk(4 * b, 8 * b)
         self.up3 = UpPS(8 * b, 4 * b)
-        self.conv3 = DoubleConv(8 * b, 4 * b)
+        self.conv3 = blk(8 * b, 4 * b)
         self.up2 = UpPS(4 * b, 2 * b)
-        self.conv2 = DoubleConv(4 * b, 2 * b)
+        self.conv2 = blk(4 * b, 2 * b)
         self.up1 = UpPS(2 * b, b)
-        self.conv1 = DoubleConv(2 * b, b)
+        self.conv1 = blk(2 * b, b)
         self.outc = Conv1x1(b, out_ch * s * s)
 
     def forward(self, x_and_cond: torch.Tensor, t_idx: torch.Tensor) -> torch.Tensor:
         s = self.stem_s2d
+        pool = max_pool2_train if self.autograd else max_pool2
         x = input_map(x_and_cond, t_idx, s, self.compute_dtype)
         e1 = self.inc(x)
-        e2 = max_pool2(self.down1(e1))
-        e3 = max_pool2(self.down2(e2))
-        e4 = max_pool2(self.down3(e3))
+        e2 = pool(self.down1(e1))
+        e3 = pool(self.down2(e2))
+        e4 = pool(self.down3(e3))
         d3 = self.conv3(torch.cat([self.up3(e4), e3], dim=-1))
         d2 = self.conv2(torch.cat([self.up2(d3), e2], dim=-1))
         d1 = self.conv1(torch.cat([self.up1(d2), e1], dim=-1))

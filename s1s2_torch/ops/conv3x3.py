@@ -25,6 +25,10 @@ Each wrapper runs its plain PyTorch version when the tensor lies on the CPU
 and launches the kernel when it lies on a CUDA device; it never falls back
 from one to the other. ``launches`` counts the wrapper calls that launched
 the kernel (the int8 mode's also by scale mode, ``mode_launches``).
+
+The kernels have no backward. Training runs :func:`conv3x3_relu_train`,
+PyTorch's differentiable conv, as the JAX package trains through XLA's
+``nn.Conv`` and never through its Pallas kernel.
 """
 
 from __future__ import annotations
@@ -59,6 +63,16 @@ def conv3x3_relu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if apply_relu:
         y = torch.relu(y)
     return y.to(x.dtype).contiguous()
+
+
+def conv3x3_relu_train(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The training path's conv, differentiable: ``F.conv2d`` in x's dtype
+    (cuDNN on the card), then the bias add in x's dtype, as flax's
+    ``nn.Conv`` adds it after the conv has rounded, then ReLU. ``w`` and
+    ``b`` are the f32 parameters, cast inside the graph so that their
+    gradients come back in f32. NHWC in, NHWC out."""
+    y = F.conv2d(_nchw(x), _oihw(w.to(x.dtype)), padding=1).permute(0, 2, 3, 1)
+    return torch.relu(y + b.to(x.dtype))
 
 
 def _scale(sx, device) -> torch.Tensor:

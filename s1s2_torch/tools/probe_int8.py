@@ -1,6 +1,6 @@
 """Probe: the tensor-core matmul and the halo load into shared memory.
 
-    python -m s1s2_torch.tools.probe_int8 [matmul|dma|all]
+    python -m s1s2_torch.tools.probe_int8 [matmul|dma|conv|all]
 
 Port of the JAX package's ``tools/probe_pallas_int8.py`` on one CUDA card:
 
@@ -15,7 +15,7 @@ Timing keeps the reference probe's rule: every call gets a different input
 (made before the call), each call is timed alone between CUDA events, and the
 best of ``iters`` calls is kept. The reference's ``conv`` probe (bf16 against
 int8 conv chains with an int8-out epilogue) is not ported yet: the port's
-conv has no int8-out epilogue (ROADMAP §1).
+conv has no int8-out epilogue (ROADMAP §2 item 1); ``conv`` says so.
 """
 
 from __future__ import annotations
@@ -111,13 +111,14 @@ def main(argv=None) -> Dict[str, Dict[str, float]]:
     argv = sys.argv[1:] if argv is None else argv
     what = argv[0] if argv else "all"
     if what not in ("matmul", "dma", "conv", "all"):
-        raise SystemExit(f"usage: python -m s1s2_torch.tools.probe_int8 [matmul|dma|all], "
+        raise SystemExit(f"usage: python -m s1s2_torch.tools.probe_int8 [matmul|dma|conv|all], "
                          f"got {what!r}")
     if not torch.cuda.is_available():
         raise SystemExit("probe_int8 measures the card: torch.cuda.is_available() is false")
     print(torch.cuda.get_device_name(0), flush=True)
     if what in ("conv", "all"):
-        print("conv: not ported yet (needs an int8-out conv epilogue; ROADMAP §1)", flush=True)
+        print("conv: not ported yet (needs an int8-out conv epilogue; ROADMAP §2 item 1)",
+              flush=True)
     out = {}
     if what in ("dma", "all"):
         out["dma"] = probe_dma()

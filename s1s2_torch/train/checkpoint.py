@@ -15,12 +15,21 @@ on a machine that has torch and numpy and nothing of JAX. Its writer,
 msgpack_serialize`` gives for the same tree: torch tensors and numpy arrays
 as ext 1, numpy scalars as ext 3, nested dicts and lists, Python scalars
 and strings in msgpack's smallest form.
+
+The training artifacts of the JAX package's ``train/checkpoint.py``:
+:func:`save_model` / :func:`load_model` write and read its model-only
+files (the same bytes), with :func:`reference_artifact_paths` naming the
+final/last/best triple. Its orbax resume state becomes the port's own
+state file, :func:`save_state` / :func:`restore_state`: one msgpack blob
+(params, Adam's moments and count, EMA, step, skip count) written by the
+same writer, no pickles.
 """
 
 from __future__ import annotations
 
+import os
 import struct
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -281,14 +290,131 @@ def msgpack_restore(data: bytes) -> Dict[str, Any]:
 
 def load_params(path: str) -> Dict[str, Any]:
     """Load a model-only msgpack checkpoint (the JAX package's
-    ``save_model`` artifact) as a nested dict of CPU tensors, or a reference
-    ``.pth`` through ``models/convert.py`` as a nested dict of f32 arrays."""
+    ``save_model`` artifact) as a nested dict of CPU tensors, a reference
+    ``.pth`` through ``models/convert.py`` as a nested dict of f32 arrays,
+    or a state directory (:func:`save_state`) as its EMA params."""
     if path.endswith(".pth"):
         from s1s2_torch.models.convert import load_pth_checkpoint
 
         return load_pth_checkpoint(path)["params"]
+    if os.path.isdir(path):
+        return restore_state(path)["ema_params"]
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
+
+
+def nest(flat: Dict[str, Any]) -> Dict:
+    """{"down1.conv1.kernel": t} → {"down1": {"conv1": {"kernel": t}}}."""
+    tree: Dict = {}
+    for key, v in flat.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def _write(path: str, data: bytes) -> None:
+    """Write ``data`` under a temporary name, then rename it into place."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
+def save_model(params: Dict[str, Any], path: str) -> None:
+    """A model-only artifact: flax's msgpack bytes of the param tree (a flat
+    state dict, nested by its dots, or a nested one), tensors read back to
+    the host."""
+    tree = nest(params) if all(not isinstance(v, dict) for v in params.values()) else params
+    _write(path, msgpack_serialize(tree))
+
+
+def load_model(template: Dict[str, torch.Tensor], path: str) -> Dict[str, torch.Tensor]:
+    """A model-only artifact as a flat state dict with the names and shapes
+    of ``template`` (a flat state dict, e.g. ``models.unet.init_params``);
+    any other tree is refused as an architecture that does not match."""
+    got = {".".join(k): v for k, v in flatten(load_params(path)).items()}
+    want = {k: tuple(v.shape) for k, v in template.items()}
+    have = {k: tuple(v.shape) for k, v in got.items()}
+    if have != want:
+        diff = sorted(set(have.items()) ^ set(want.items()))[:4]
+        raise ValueError(
+            f"checkpoint {path!r} does not match the model architecture "
+            "(check --base_ch and the dataset's channel counts); "
+            f"underlying error: names and shapes differ at {diff}")
+    return {k: got[k] for k in template}
+
+
+def reference_artifact_paths(model_path: str):
+    """``x.msgpack`` → (final, last, best), the reference's ``.pth →
+    _last/_best`` naming."""
+    root, ext = os.path.splitext(model_path)
+    return model_path, f"{root}_last{ext}", f"{root}_best{ext}"
+
+
+STATE_FILE = "train_state.msgpack"
+
+
+def state_file(path: str) -> str:
+    """The state file inside a ``--save_state_dir``."""
+    return os.path.join(path, STATE_FILE)
+
+
+def save_state(state, path: str) -> None:
+    """The resumable train state (``train/loop.TrainState``) into the
+    directory ``path``, replacing what was there."""
+    L = state.layout
+    tree = {"step": int(state.step), "skipped": state.skipped,
+            "params": nest(L.unflatten(state.params)),
+            "opt_state": {"count": state.opt_state.count,
+                          "mu": nest(L.unflatten(state.opt_state.mu)),
+                          "nu": nest(L.unflatten(state.opt_state.nu))},
+            "ema_params": nest(L.unflatten(state.ema_params))}
+    _write(state_file(path), msgpack_serialize(tree))
+
+
+def restore_state(path: str, template=None):
+    """The state written by :func:`save_state`: its nested dict of CPU
+    tensors, or, given a ``TrainState`` ``template``, a ``TrainState`` with
+    the template's layout on the template's device."""
+    with open(state_file(path), "rb") as f:
+        tree = msgpack_restore(f.read())
+    if template is None:
+        return tree
+    from s1s2_torch.train.loop import AdamState, TrainState
+
+    L, device = template.layout, template.params.device
+
+    def flat(t):
+        leaves = {".".join(k): v for k, v in flatten(t).items()}
+        if {k: tuple(v.shape) for k, v in leaves.items()} != dict(zip(L.names, L.shapes)):
+            raise ValueError(f"state {path!r} does not match the model architecture")
+        return L.flatten(leaves, device)
+
+    opt = tree["opt_state"]
+    return TrainState(step=int(tree["step"]), params=flat(tree["params"]),
+                      opt_state=AdamState(opt["count"].to(device, torch.int32),
+                                          flat(opt["mu"]), flat(opt["nu"])),
+                      ema_params=flat(tree["ema_params"]),
+                      skipped=tree["skipped"].to(device, torch.int32), layout=L)
+
+
+def load_any_checkpoint(path: str, template: Optional[Dict[str, torch.Tensor]] = None):
+    """``.pth`` → ``{"params": tree}`` through ``models/convert.py``; a file →
+    :func:`load_model` (needs ``template``); a directory → the state
+    file's nested dict (:func:`restore_state`)."""
+    if path.endswith(".pth"):
+        from s1s2_torch.models.convert import load_pth_checkpoint
+
+        return load_pth_checkpoint(path)
+    if os.path.isfile(path):
+        if template is None:
+            raise ValueError("msgpack load requires a params template")
+        return load_model(template, path)
+    return restore_state(path)
 
 
 def flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:

@@ -307,3 +307,56 @@ def test_gpu_packed_matmul_skips_the_transpose(cuda):
     a = torch.randint(-128, 128, (256, 512), generator=g, device=cuda).to(torch.int8)
     b = torch.randint(-128, 128, (512, 384), generator=g, device=cuda).to(torch.int8)
     assert torch.equal(matmul_int8_packed(a, pack_int8_b(b), 384), matmul(a, b, torch.int32))
+
+
+def _rel(a, b):
+    n = float(b.double().norm())
+    return float((a - b).double().norm()) / n if n else float((a - b).double().norm())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,Ci,Co", [(2, 64, 64, 9, 96), (1, 32, 32, 384, 192),
+                                         (4, 16, 16, 768, 768), (3, 17, 9, 5, 40)])
+def test_gpu_train_conv_matches_its_cpu_version(cuda, B, H, W, Ci, Co):
+    """The training path's autograd conv (cuDNN on the card) against the same
+    function on the CPU, output and the three gradients: in f32 (TF32 off)
+    within 1e-5 relative (the sums' order), in bf16 within twice the CPU's
+    own bf16-vs-f32 distance (two bf16 evaluations)."""
+    from s1s2_torch.ops.conv3x3 import conv3x3_relu_train
+
+    g = torch.Generator().manual_seed(0)
+    x, w = torch.randn((B, H, W, Ci), generator=g), 0.05 * torch.randn((3, 3, Ci, Co), generator=g)
+    b, up = torch.randn((Co,), generator=g), torch.randn((B, H, W, Co), generator=g)
+
+    def run(dev, dtype):
+        xd = x.to(dev, dtype).requires_grad_(True)
+        wd, bd = w.to(dev).requires_grad_(True), b.to(dev).requires_grad_(True)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                        allow_tf32=False):
+            y = conv3x3_relu_train(xd, wd, bd)
+            (y.float() * up.to(dev)).sum().backward()
+        return [t.detach().float().cpu() for t in (y, xd.grad, wd.grad, bd.grad)]
+
+    ref = run("cpu", torch.float32)
+    for c, h in zip(run(cuda, torch.float32), ref):
+        assert _rel(c, h) <= 1e-5
+    for c, h, r in zip(run(cuda, torch.bfloat16), run("cpu", torch.bfloat16), ref):
+        assert _rel(c, h) <= max(2 * _rel(h, r), 1e-6)
+
+
+@pytest.mark.gpu
+def test_gpu_train_pool_routes_ties_as_the_cpu(cuda):
+    """max_pool2_train's backward on the card gives a tied window's gradient
+    to its first element, as on the CPU (and as JAX does)."""
+    from s1s2_torch.models.unet import max_pool2_train
+
+    x = torch.tensor([[1.0, 1.0], [1.0, 0.5]]).repeat(8, 8)[None, :, :, None].repeat(2, 1, 1, 3)
+    up = torch.randn((2, 8, 8, 3), generator=torch.Generator().manual_seed(1))
+    grads = []
+    for dev, dtype in (("cpu", torch.float32), (cuda, torch.float32), (cuda, torch.bfloat16)):
+        xd = x.to(dev, dtype).requires_grad_(True)
+        (max_pool2_train(xd).float() * up.to(dev)).sum().backward()
+        grads.append(xd.grad.float().cpu())
+    assert torch.equal(grads[0], grads[1])
+    # bf16: the same elements take the gradient (rounded to bf16)
+    assert torch.equal(grads[2] != 0, grads[0] != 0) and int((grads[1] != 0).sum()) == up.numel()

@@ -40,7 +40,7 @@ def test_no_blocked_import_in_source(path):
 
 def test_port_has_the_mirrored_layout():
     for sub in ("core", "ops", "models", "sampling", "eval", "data", "train", "cli", "viz",
-                "tools"):
+                "tools", "utils"):
         assert (REPO / "s1s2_torch" / sub / "__init__.py").is_file(), sub
 
 
@@ -116,7 +116,7 @@ SCRIPT = textwrap.dedent("""
     # the serving surface: an int8 artifact with int8 up-convs through the
     # port's writer and reader, a scene through the infer_scene CLI, one
     # request to the server, bench_int8 with quant_up, and the dispatcher
-    import contextlib, io, threading, urllib.request
+    import contextlib, io, os, threading, urllib.request
     from s1s2_torch.__main__ import main as dispatch
     from s1s2_torch.cli import infer_scene, serve
     from s1s2_torch.models.quant import make_sampler_calib, quant_apply, quantize_unet
@@ -154,12 +154,36 @@ SCRIPT = textwrap.dedent("""
         httpd.server_close()
         b8 = bench_int8.run(batch=2, steps=1, iters=1, quant_up=True, size=16, base_ch=8,
                             device="cpu", emit=lambda _: None)
-    rc_train = dispatch(["train"])
+    # the training slice: one train step, a train_loop with its state file
+    # and metrics, and the dispatcher (train is ported, distill is not)
+    from s1s2_torch.train.loop import TrainConfig, create_train_state, make_train_step
+    from s1s2_torch.train.trainer import RunConfig, train_loop
+    from s1s2_torch.models.unet import UNetSmall
+    from s1s2_torch.core import random
+    step = make_train_step(UNetSmall(4, 8, autograd=True, remat=True), Schedule.cosine(1000),
+                           TrainConfig())
+    st, m = step(create_train_state(st8, TrainConfig()), (gt8, gt8, None), random.PRNGKey(0))
+    with tempfile.TemporaryDirectory() as td:
+        make_synthetic_patches(td + "/p", n=4, size=16, seed=0)
+        hist = train_loop(RunConfig(patch_dir=td + "/p", model_path=td + "/m.msgpack",
+                                    epochs=2, batch_size=2, base_ch=8, save_state_dir=td + "/st",
+                                    metrics_jsonl=td + "/m.jsonl", device="cpu"), TrainConfig())
+        trained = [hist["final_state"].step, hist["skipped"],
+                   sorted(os.listdir(td)), sorted(os.listdir(td + "/st"))]
+    with contextlib.redirect_stdout(io.StringIO()):
+        try:
+            dispatch(["train", "--help"])
+        except SystemExit as e:
+            rc_train = e.code
+    rc_distill = dispatch(["distill"])
     loaded = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
     print(json.dumps({{"modules": mods, "shape": list(y.shape),
                       "up_convs": sorted(up.up8), "up_forward": list(y8.shape),
                       "scene_shape": scene_shape, "served": served,
                       "bench_int8_paths": [r["path"] for r in b8["rows"]], "rc_train": rc_train,
+                      "rc_distill": rc_distill, "step": [st.step, int(m["skipped"]),
+                                                         bool(torch.isfinite(m["loss"]))],
+                      "trained": trained,
                       "finite": bool(torch.isfinite(y).all()), "loaded": loaded,
                       "dpm_shape": r["shape"], "dpm_finite": r["finite"],
                       "cfg_checked": cfg["quality_checked"] in (True, False),
@@ -188,11 +212,17 @@ def test_port_runs_with_jax_flax_msgpack_ml_dtypes_and_s1s2_blocked():
             "s1s2_torch.data.patchify", "s1s2_torch.cli.infer_scene", "s1s2_torch.cli.serve",
             "s1s2_torch.__main__", "s1s2_torch.tools.bench_int8",
             "s1s2_torch.tools.bench_scene", "s1s2_torch.tools.bench_serve",
-            "s1s2_torch.ops.pixel_shuffle"} <= set(out["modules"])
+            "s1s2_torch.ops.pixel_shuffle", "s1s2_torch.train.loss", "s1s2_torch.train.loop",
+            "s1s2_torch.train.trainer", "s1s2_torch.cli.train", "s1s2_torch.tools.bench_train",
+            "s1s2_torch.utils.profiling"} <= set(out["modules"])
     assert out["up_convs"] == ["up1", "up2", "up3"] and out["up_forward"] == [2, 16, 16, 4]
     assert out["scene_shape"] == [4, 40, 40] and out["served"] == [3, 16, 16, 4]
     assert out["bench_int8_paths"] == ["bf16", "int8", "int8_quant_up"]
-    assert out["rc_train"] == 2
+    assert out["rc_train"] == 0 and out["rc_distill"] == 2
+    assert out["step"] == [1, 0, True]
+    assert out["trained"] == [4, 0, ["m.jsonl", "m.msgpack", "m_best.msgpack",
+                                     "m_best.msgpack.loss.json", "m_last.msgpack", "p", "st"],
+                              ["train_state.msgpack"]]
     assert out["dpm_shape"] == [1, 16, 16, 4] and out["dpm_finite"]
     assert out["cfg_checked"] and out["cfg_shape"] == [1, 16, 16, 4] and out["int8_convs"] == 10
     assert out["table_modes"] == ["baseline_bicubic", "baseline_linear", "ddim", "limitation"]

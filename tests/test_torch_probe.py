@@ -189,3 +189,23 @@ def test_halo_refuses_too_few_rows():
         halo_rows_x2(torch.zeros((2, 4, 4)))
     with pytest.raises(ValueError):
         halo_rows_x2(torch.zeros((8, 4, 4)), th=0)
+
+
+@pytest.mark.parametrize("arg", ["bogus", "conv2"])
+def test_probe_usage_names_every_leg_it_accepts(arg):
+    """The usage line lists conv, which the tool accepts; it is checked
+    before the card, so it answers here too."""
+    from s1s2_torch.tools import probe_int8
+
+    with pytest.raises(SystemExit) as e:
+        probe_int8.main([arg])
+    assert "[matmul|dma|conv|all]" in str(e.value.code) and repr(arg) in str(e.value.code)
+
+
+def test_probe_conv_points_at_the_roadmap_item_that_ports_it():
+    import inspect
+
+    from s1s2_torch.tools import probe_int8
+
+    src = inspect.getsource(probe_int8)
+    assert "ROADMAP §2 item 1" in src and "ROADMAP §1)" not in src
