@@ -144,6 +144,32 @@ Phases, each printing its own seconds:
    ``--resume`` for the second, under deterministic cuDNN: the state files
    and the final EMA files bit-equal, the final/_last/_best files loading
    through ``load_model``, one metrics line an epoch.
+4m. Distillation (``train/distill.py``; the student trains on PyTorch's
+   autograd conv, the frozen teacher runs the inference path's conv kernel
+   and the rollouts the DDIM kernel): (a) the progressive step at base 16,
+   64², B=4, 3 steps on jax's threefry draws in bf16 (the kernel takes bf16
+   only) and the endpoint step (an s2d-2 student) in f32 and bf16, card
+   against the CPU: losses, per-channel losses, ε-MSEs, step-0 gradients,
+   Adam's moments, parameter and EMA updates within 1e-2 (f32) and 2 (bf16)
+   times the CPU's own bf16-vs-f32 distance; the card's f32 step is held to
+   the CPU's step with the network in f64 (an Adam update is near sign(g),
+   and the CPU's f32 forward settles a max-pool near-tie of this input
+   otherwise than f64 does, which flips updates whole; the count of updates
+   more than 0.1 × lr apart is printed); one non-finite batch each,
+   skipped with the params kept; the card's steps under ``set_sync_debug_
+   mode("error")``; exact launches (the teacher's 26 convs a step). (b)
+   ``tools.score_distill_full`` on the 32-file evidence set, the ε teacher
+   with the base-96 and 24x4 students, each row's MAE within 0.005 of
+   ``distill_full_metrics.jsonl`` / ``distill_width24x4_metrics.jsonl`` (the
+   other five metrics printed with their differences). (c) ``python -m
+   s1s2_torch make_synthetic --seed 1`` and ``tools.score_width_holdout`` on
+   the ten committed widths against ``distill_width_holdout.jsonl``, the
+   same bound. (d) ``python -m s1s2_torch distill`` in process: the 24x4
+   recipe (teacher ``distill_eps_student1``) for 25 epochs with snapshots
+   every 10, its seconds an epoch between the first snapshot and the end,
+   the snapshot and the final student scored finite; then a base-96
+   progressive run (teacher steps 4, two epochs a phase), the ms a step of
+   phase 0's second epoch. Exact launch counts throughout.
 5. Timing at B=128 with CUDA events: each kernel at each path shape beside
    its plain version, ``F.conv2d`` (bf16 mode only) and its bound.
 5b. Timing at the base-96 shapes (bf16 at line 1's B=128, int8 at line 2's
@@ -154,7 +180,7 @@ Phases, each printing its own seconds:
    their plain versions, ``torch.matmul``/``torch._int_mm`` and
    ``x[1:-1]*2``.
 
-Each path of 4-4l is driven with every launch count set to 0 just before it
+Each path of 4-4m is driven with every launch count set to 0 just before it
 and read just after; a kernel of the path that was not launched fails it.
 Then a ``{"kernels": [...]}`` line (the conv rows' times are those of the
 24x4 main path at B=128, and the per-channel int8 row's those of the CFG
@@ -165,8 +191,8 @@ the paths), the card line
 again, and last ``{"ok": true, "device": {...}}``. Any failure raises, and
 no result is printed. The port's inference paths never call cuDNN,
 cuBLAS's ``torch.matmul`` on the probe's operands or ``torch._int_mm``; they
-are timed here only as yardsticks. Its training path (4l) runs cuDNN's conv
-through autograd, where the JAX package runs XLA's.
+are timed here only as yardsticks. Its training path (4l, and the students
+of 4m) runs cuDNN's conv through autograd, where the JAX package runs XLA's.
 """
 
 import contextlib
@@ -221,6 +247,25 @@ TRAIN_CHECK = (16, 64, 4, 3)
 TRAIN_SLACK = {"f32": 1e-2, "bf16": 2.0}
 TRAIN_BENCH_BATCHES, TRAIN_BENCH_ITERS = (8, 32, 64), 5
 TRAIN_RUN = (32, 96, 8, 2)
+# 4m: (a) the progressive step (bf16; the teacher runs the conv kernel, which
+# takes bf16 only) and the endpoint step (f32 and bf16) card against CPU:
+# base, size, batch, steps, the endpoint student's stem, the tolerances of
+# 4l (the card's f32 step against the CPU's with an f64 network); (b) the
+# committed score replays: (student, base, stem, committed rows),
+# each row's MAE within DISTILL_MAE_SLACK; (c) the held-out set's seed and the
+# committed widths; (d) the CLI at full width: the 24x4 recipe's flags with
+# DISTILL_EP epochs (snapshots every DISTILL_SNAP), and a base-96 progressive
+# run (teacher steps 4, two epochs a phase)
+DISTILL_CHECK = (16, 64, 4, 3, 2)
+DISTILL_MAE_SLACK = 0.005
+DISTILL_REPLAYS = (("1", 96, 1, "distill_full_metrics.jsonl"),
+                   ("24x4", 24, 4, "distill_width24x4_metrics.jsonl"))
+HOLDOUT_SEED = 1
+HOLDOUT_WIDTHS = ("96", "64", "48", "32", "24", "16", "12", "16x2", "48x4", "24x4")
+DISTILL_EP, DISTILL_SNAP = 25, 10
+R2_FLAGS = ["--student_base_ch", "24", "--student_s2d", "4", "--skip_progressive",
+            "--endpoint_teacher_steps", "1", "--endpoint_seeds", "8", "--lr", "3e-4",
+            "--batch_size", "8"]
 QUANT_OPS = ("conv3x3_relu", "conv3x3_relu_int8", "ps_conv_transpose_2x2",
              "ps_conv_transpose_2x2_int8", "conv1x1", "max_pool2")
 # the ops a forward must give bit for bit on the card and the CPU
@@ -617,6 +662,283 @@ def train_phase(torch, dev, card, drive, require, path_launches):
         require(len(first) > 0 and same and same_final and int(sa["step"]) == epochs * (
             n_files // tb), "the resumed run differs from the unbroken one")
     return rows
+
+
+def distill_phase(torch, dev, card, drive, require, path_launches):
+    """4m: the progressive and endpoint steps on the card against the CPU,
+    the committed score replays, the held-out width scores and the distill
+    CLI at full width (see the module docstring)."""
+    import numpy as np
+
+    from s1s2_torch.__main__ import main as dispatch
+    from s1s2_torch.core import random
+    from s1s2_torch.core.schedule import Schedule
+    from s1s2_torch.data.dataset import load_set
+    from s1s2_torch.data.synthetic import make_synthetic_patches
+    from s1s2_torch.eval.metrics import masked_mae
+    from s1s2_torch.headline import CKPT_DIR
+    from s1s2_torch.models.unet import UNetSmall, init_params, load_unet
+    from s1s2_torch.models.weights import params_from_numpy
+    from s1s2_torch.sampling.samplers import ddim_anchored, make_denoise_fn
+    from s1s2_torch.tools import score_distill_full, score_width_holdout
+    from s1s2_torch.train import distill
+    from s1s2_torch.train.checkpoint import load_params
+    from s1s2_torch.train.loop import upload
+
+    results = Path(__file__).resolve().parent / "examples" / "results_synthetic"
+    zero = {"conv3x3_relu": 0, "conv3x3_relu_int8": 0, "fused_ddim_update": 0, "matmul": 0,
+            "halo_rows_x2": 0}
+
+    def exact(path, want):
+        got = path_launches[path]
+        require(got == {**zero, **want}, f"{path}: launches {got}, want {({**zero, **want})}")
+
+    # (a) card against CPU: the progressive step (bf16 on the card; f32 and
+    # bf16 on the CPU give its own distance) and the endpoint step (f32 on the
+    # card against the CPU's f64 network), each with one non-finite batch
+    # after the steps
+    base, size, B, steps, s2d = DISTILL_CHECK
+    sched, key = Schedule.cosine(1000), random.PRNGKey(1000)
+    params = init_params(4, base, 1, seed=0, in_ch=8)
+    student = init_params(4, base, s2d, seed=1, in_ch=8)
+    cfg = distill.DistillConfig(teacher_steps=4, ema_decay=0.9)
+    rng = np.random.default_rng(0)
+    cond = rng.standard_normal((B, size, size, 4)).astype(np.float32)
+    x0 = rng.random((B, size, size, 4)).astype(np.float32)
+    mask = (rng.random((B, size, size)) > 0.1).astype(np.float32)
+    noise = rng.standard_normal((B, size, size, 4)).astype(np.float32)
+    tgt = rng.random((B, size, size, 4)).astype(np.float32)
+
+    def run(kind, device, dtype):
+        model = UNetSmall(4, base, s2d if kind == "endpoint" else 1, 8, dtype, autograd=True)
+        if kind == "progressive":
+            step = distill.make_distill_step(model, sched, cfg, 2, draws="threefry")
+            teacher = distill.inference_net(model, params, device)
+            state = distill.create_distill_state(params, cfg, device)
+            p0 = state.layout.flatten(params)
+            good, bad = (cond, x0, mask), (cond, x0.copy(), mask)
+            bad[1][1, 5, 6, 1] = np.nan
+            call = lambda st, b: step(st, teacher, b, key)  # noqa: E731
+            grads0 = lambda st: step.loss_and_grads(  # noqa: E731
+                st.params, st.layout, teacher, *(upload(a, device) for a in good),
+                *step.draw(key, 0, B, x0.shape, device))[-1]
+        else:
+            step = distill.make_endpoint_distill_step(model, sched, cfg)
+            state = distill.create_distill_state(student, cfg, device)
+            p0 = state.layout.flatten(student)
+            good, bad = (cond, x0, mask, noise, tgt), (cond, x0, mask, noise, tgt.copy())
+            bad[4][1, 2, 3, 0] = np.inf
+            call = step
+            grads0 = lambda st: step.loss_and_grads(  # noqa: E731
+                st.params, st.layout, *(upload(a, device) for a in good))[-1]
+        on_card = device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize(device)
+            torch.cuda.set_sync_debug_mode("error")  # any host sync in the steps raises
+        try:
+            grads = grads0(state)
+            ms = []
+            for _ in range(steps):
+                state, m = call(state, good)
+                ms.append(m)
+            skipped_state, m_bad = call(state, bad)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+        cpu = lambda t: t.detach().to("cpu")  # noqa: E731
+        out = {"loss": torch.stack([cpu(m["loss"]) for m in ms]),
+               "ch_losses": torch.stack([cpu(m["ch_losses"]) for m in ms]),
+               "grads": cpu(grads),
+               "update": cpu(state.params) - p0, "ema_update": cpu(state.ema_params) - p0,
+               "mu": cpu(state.opt_state.mu), "nu": cpu(state.opt_state.nu),
+               "skipped": int(state.skipped), "skip_then": int(skipped_state.skipped),
+               "skip_loss": float(m_bad["loss"]),
+               "skip_kept": bool(torch.equal(cpu(skipped_state.params), cpu(state.params))
+                                 and torch.equal(cpu(skipped_state.ema_params),
+                                                 cpu(state.ema_params)))}
+        if kind == "progressive":
+            out["eps_mse"] = torch.stack([cpu(m["eps_mse"]) for m in ms])
+        return out
+
+    for kind, card_dtypes in (("progressive", ("bf16",)), ("endpoint", ("f32", "bf16"))):
+        runs = {}
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            runs[name, "cpu"] = run(kind, torch.device("cpu"), dtype)
+            if name in card_dtypes:
+                runs[name, "card"] = drive(f"distill {kind} step {name} card",
+                                           lambda k=kind, d=dtype: run(k, dev, d))
+        if "f32" in card_dtypes:
+            # an Adam update is near sign(g): a max-pool window whose argmax
+            # sits at a near-tie routes its gradient elsewhere when the CPU's
+            # f32 forward settles the tie otherwise than f64, and flips
+            # updates whole; the card's f32 step is held to the f64 network
+            runs["f64", "cpu"] = run(kind, torch.device("cpu"), torch.float64)
+        keys = [k for k in runs["f32", "cpu"] if torch.is_tensor(runs["f32", "cpu"][k])]
+        own = {k: rel(runs["bf16", "cpu"][k], runs["f32", "cpu"][k]) for k in keys}
+        for name in card_dtypes:
+            ref = "f64" if name == "f32" else name
+            c, h = runs[name, "card"], runs[ref, "cpu"]
+            flips = int(((c["update"] - h["update"]).abs() > 0.1 * cfg.lr).sum())
+            print(f"distill {kind} step {name}: {flips} of {c['update'].numel()} parameters' "
+                  f"updates differ by more than 0.1 x lr, card against the CPU's {ref}",
+                  flush=True)
+            for k in keys:
+                slack = TRAIN_SLACK[name]
+                tol, d = slack * own[k], rel(c[k], h[k])
+                print(f"distill {kind} step {name} card vs CPU {ref} (base {base}, {size}², "
+                      f"B={B}, {steps} steps): {k} rel {d:.3e} (tolerance {tol:.3e} = "
+                      f"{slack} x the CPU's bf16-vs-f32 {own[k]:.3e})", flush=True)
+                require(d <= tol, f"distill {kind} step {name}: {k} card vs CPU {d} > {tol}")
+            print(f"distill {kind} step {name}: losses card {c['loss'].tolist()} CPU "
+                  f"{h['loss'].tolist()}", flush=True)
+            for r, where in ((c, "card"), (h, "CPU")):
+                require(r["skipped"] == 0 and r["skip_then"] == 1 and r["skip_kept"]
+                        and r["skip_loss"] != r["skip_loss"],
+                        f"distill {kind} step {name} {where}: the non-finite batch was not "
+                        f"skipped cleanly: {r['skipped']} then {r['skip_then']}, kept "
+                        f"{r['skip_kept']}, loss {r['skip_loss']}")
+            # the teacher's two forwards a step: the step-0 gradient's, the
+            # steps' and the non-finite batch's
+            exact(f"distill {kind} step {name} card",
+                  {"conv3x3_relu": 2 * 13 * (steps + 2)} if kind == "progressive" else {})
+    print("distill steps: one non-finite batch skipped on card and CPU (skipped 0 -> 1, params "
+          "and EMA kept, loss NaN); the card's steps ran under sync debug mode 'error'",
+          flush=True)
+
+    def committed(name):
+        with open(results / name) as f:
+            return [json.loads(ln) for ln in f]
+
+    def compare(what, rows, want):
+        require([r.get("model") for r in rows] == [r.get("model") for r in want],
+                f"{what}: rows {[r.get('model') for r in rows]}")
+        for r, w in zip(rows, want):
+            if "model" not in w:
+                continue
+            diffs = ", ".join(f"{k} {r[k]:.5f} ({r[k] - w[k]:+.5f})"
+                              for k in score_distill_full.METRICS)
+            print(f"{what} {w['model']}: {diffs} against the committed rows on {card}",
+                  flush=True)
+            require(abs(r["mae"] - w["mae"]) <= DISTILL_MAE_SLACK,
+                    f"{what} {w['model']}: MAE {r['mae']} not within {DISTILL_MAE_SLACK} of "
+                    f"{w['mae']}")
+
+    # one forward: 13 convs; score_distill_full --int8: the teacher's 20 + 1,
+    # the student's 1, 3 calibration batches, the int8 forward's bf16 inc
+    score_counts = {"conv3x3_relu": 13 * (20 + 1 + 1 + 3) + 1, "conv3x3_relu_int8": 12,
+                    "fused_ddim_update": 20 + 1 + 1 + 1}
+    with tempfile.TemporaryDirectory() as td:
+        # (b) the committed score replays on the evidence set
+        make_synthetic_patches(f"{td}/patches", n=FULL_FILES, size=SIZE, seed=0)
+        teacher_ckpt = str(CKPT_DIR / "distill_eps_teacher.bf16.msgpack")
+        for spec, w, st, name in DISTILL_REPLAYS:
+            argv = ["--workdir", td, "--teacher", teacher_ckpt, "--student",
+                    str(CKPT_DIR / f"distill_eps_student{spec}.bf16.msgpack"),
+                    "--student_base_ch", str(w), "--student_s2d", str(st), "--int8",
+                    "--device", str(dev)]
+            t0 = time.perf_counter()
+            rows = drive(f"score_distill_full {spec}", lambda argv=argv: score_distill_full.main(
+                argv, emit=lambda _: None))
+            print(f"score_distill_full {spec}: {time.perf_counter() - t0:.2f} s", flush=True)
+            compare(f"score_distill_full {spec}", rows, committed(name))
+            exact(f"score_distill_full {spec}", score_counts)
+
+        # (c) the held-out set through the dispatcher's make_synthetic
+        with contextlib.redirect_stdout(io.StringIO()):
+            require(dispatch(["make_synthetic", "--out", f"{td}/holdout", "--n", str(FULL_FILES),
+                              "--size", str(SIZE), "--seed", str(HOLDOUT_SEED)]) == 0,
+                    "make_synthetic failed")
+        t0 = time.perf_counter()
+        rows = drive("score_width_holdout", lambda: score_width_holdout.main(
+            ["--patch_dir", f"{td}/holdout", "--widths", *HOLDOUT_WIDTHS, "--device", str(dev)],
+            emit=lambda _: None))
+        print(f"score_width_holdout, {len(HOLDOUT_WIDTHS)} widths: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        compare("score_width_holdout", rows, committed("distill_width_holdout.jsonl"))
+        nw = len(HOLDOUT_WIDTHS)
+        exact("score_width_holdout", {"conv3x3_relu": 13 * 20 + nw * (13 * (1 + 3) + 1),
+                                      "conv3x3_relu_int8": 12 * nw,
+                                      "fused_ddim_update": 20 + 2 * nw})
+
+        # (d) the CLI at full width: the 24x4 recipe, shortened, then a
+        # base-96 progressive run; each line is timed as it is written
+        class Lines(io.StringIO):
+            def __init__(self):
+                super().__init__()
+                self.stamps = []
+
+            def write(self, text):
+                self.stamps += [(time.perf_counter(), ln) for ln in text.splitlines() if ln]
+                return len(text)
+
+        def cli(argv):
+            out = Lines()
+            with contextlib.redirect_stdout(out):
+                require(dispatch(["distill"] + argv + ["--device", str(dev)]) == 0,
+                        f"distill {argv} failed")
+            return [(t, json.loads(ln)) for t, ln in out.stamps]
+
+        model_path = f"{td}/s24x4.msgpack"
+        t0 = time.perf_counter()
+        lines = drive("distill cli 24x4", lambda: cli(
+            ["--patch_dir", f"{td}/patches", "--teacher",
+             str(CKPT_DIR / "distill_eps_student1.bf16.msgpack"), "--model_path", model_path,
+             "--endpoint_epochs", str(DISTILL_EP), "--snapshot_every", str(DISTILL_SNAP)]
+            + R2_FLAGS))
+        total = time.perf_counter() - t0
+        snaps = [(t, d["snapshot_epoch"]) for t, d in lines if "snapshot_epoch" in d]
+        ends = [(t, d) for t, d in lines if "endpoint_epoch" in d]
+        require(len(snaps) == DISTILL_EP // DISTILL_SNAP - (DISTILL_EP % DISTILL_SNAP == 0)
+                and len(ends) == 1 and ends[0][1]["endpoint_epoch"] == DISTILL_EP
+                and np.isfinite(ends[0][1]["loss"]) and ends[0][1]["skipped"] == 0,
+                f"distill cli 24x4: lines {[d for _, d in lines]}")
+        s_per_epoch = (ends[0][0] - snaps[0][0]) / (DISTILL_EP - snaps[0][1])
+        steps_per_epoch = FULL_FILES * 8 // 8  # files x 8 seeds / B=8
+        print(f"distill cli 24x4 (teacher distill_eps_student1, {FULL_FILES} files of {SIZE}², "
+              f"8 seeds, B=8, {DISTILL_EP} epochs): {total:.2f} s with set-up; "
+              f"{s_per_epoch:.4f} s/epoch ({steps_per_epoch} steps, "
+              f"{steps_per_epoch / s_per_epoch:.1f} steps/s) between the epoch-{snaps[0][1]} "
+              f"snapshot and the end; loss line {ends[0][1]}; the full recipe's 2800 epochs "
+              f"would take {2800 * s_per_epoch:.0f} s on {card}", flush=True)
+        exact("distill cli 24x4", {"conv3x3_relu": 8 * 13, "fused_ddim_update": 8})
+        cond_e, gt_e, mask_e = load_set(f"{td}/patches", dev)
+        noise_e = torch.from_numpy(random.normal(random.PRNGKey(1234), tuple(gt_e.shape))).to(dev)
+
+        def score_file(path, base_ch, stem):
+            net = load_unet(params_from_numpy(load_params(path)), 4, base_ch, stem, device=dev)
+            pred = ddim_anchored(make_denoise_fn(net, cond_e), gt_e, sched, 200, 1,
+                                 noise=noise_e)
+            return float(masked_mae(pred, gt_e, mask_e))
+
+        maes = drive("distill cli 24x4 files", lambda: [
+            score_file(p, 24, 4) for p in (model_path + ".snap", model_path)])
+        print(f"distill cli 24x4: snapshot (epoch {snaps[-1][1]}) and final student's evidence "
+              f"ddim-1 MAE {maes[0]:.5f} / {maes[1]:.5f} (bf16; epoch {DISTILL_EP} of the "
+              f"recipe's 2800)", flush=True)
+        require(all(np.isfinite(m) for m in maes), f"distill cli 24x4: MAEs {maes}")
+
+        t0 = time.perf_counter()
+        lines = drive("distill cli base-96 progressive", lambda: cli(
+            ["--patch_dir", f"{td}/patches", "--teacher", teacher_ckpt, "--model_path",
+             f"{td}/p96.msgpack", "--teacher_steps", "4", "--epochs_per_phase", "2"]))
+        total = time.perf_counter() - t0
+        phases = [(t, d) for t, d in lines if "phase" in d]
+        require([(d["student_steps"], d["epoch"]) for _, d in phases] == [(2, 1), (2, 2), (1, 1),
+                                                                         (1, 2)]
+                and all(np.isfinite(d["loss"]) and d["skipped"] == 0 for _, d in phases)
+                and lines[-1][1]["phases"] == [2, 1], f"distill cli base-96: {lines}")
+        n_steps = FULL_FILES // 8
+        exact("distill cli base-96 progressive", {"conv3x3_relu": 2 * 2 * n_steps * 2 * 13})
+        # phase 0's second epoch: the steps alone, the set-up and rebuilds outside
+        epoch2 = phases[1][0] - phases[0][0]
+        print(f"distill cli base-96 progressive (teacher distill_eps_teacher, 4 -> 2 -> 1, two "
+              f"epochs a phase of {n_steps} steps at B=8): {total:.2f} s with set-up; phase 0's "
+              f"second epoch {epoch2:.4f} s, {epoch2 / n_steps * 1e3:.2f} ms a step "
+              f"({2 * 13} teacher convs and the student's forward and backward); losses "
+              f"{[round(d['loss'], 6) for _, d in phases]}", flush=True)
+        p96 = score_file(f"{td}/p96.msgpack", 96, 1)
+        require(np.isfinite(p96), f"distill cli base-96: MAE {p96}")
+    return {"s_per_epoch_24x4": s_per_epoch, "ms_per_step_96": epoch2 / n_steps * 1e3}
 
 
 def main():
@@ -1514,6 +1836,11 @@ def main():
     with Phase("training: the train step card vs CPU, bench_train at base 96, the trainer "
                "with a resume"):
         train_rows = train_phase(torch, dev, card, drive, require, path_launches)
+        torch.cuda.empty_cache()
+
+    with Phase("distillation: the steps card vs CPU, the committed score replays, the held-out "
+               "widths, the distill CLI at full width"):
+        distill_phase(torch, dev, card, drive, require, path_launches)
         torch.cuda.empty_cache()
 
     with Phase("probe path: probe_int8 all"):

@@ -13,13 +13,13 @@ COMMANDS = {
     "infer_scene": "s1s2_torch.cli.infer_scene",
     "serve": "s1s2_torch.cli.serve",
     "train": "s1s2_torch.cli.train",
+    "distill": "s1s2_torch.cli.distill",
+    "make_synthetic": "s1s2_torch.cli.make_synthetic",
 }
 NOT_PORTED = {
-    "distill": "ROADMAP §1 item 6 (6c, distillation)",
     "patchify": "ROADMAP §1 item 7",
     "convert_ckpt": "ROADMAP §1 item 7",
     "validate_parity": "ROADMAP §1 item 7",
-    "make_synthetic": "ROADMAP §1 item 7",
 }
 
 

@@ -80,3 +80,19 @@ class NpzPatchDataset:
         H, W, Cc = d["cond"].shape
         Ct = d["target"].shape[-1]
         return Cc, Ct, H, W
+
+
+def load_set(patch_dir: str, device=None, max_files: Optional[int] = None):
+    """(cond (N,H,W,Cc), target (N,H,W,Ct), mask (N,H,W)) of every file in
+    ``patch_dir`` (the first ``max_files``), stacked f32 (a missing mask is
+    all ones): numpy arrays, or tensors on ``device`` when one is given."""
+    ds = NpzPatchDataset(patch_dir, max_files=max_files)
+    items = [ds[i] for i in range(len(ds))]
+    out = (np.stack([d["cond"] for d in items]), np.stack([d["target"] for d in items]),
+           np.stack([np.ones(d["target"].shape[:2], np.float32) if d["mask"] is None
+                     else d["mask"] for d in items]))
+    if device is None:
+        return out
+    import torch
+
+    return tuple(torch.from_numpy(a).to(device) for a in out)

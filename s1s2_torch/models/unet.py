@@ -155,7 +155,7 @@ class UNetSmall(nn.Module):
         if remat and not autograd:
             raise ValueError("remat recomputes the training path: it needs autograd=True")
         b, s = base_ch, stem_s2d
-        self.out_ch, self.base_ch, self.stem_s2d = out_ch, base_ch, stem_s2d
+        self.out_ch, self.base_ch, self.stem_s2d, self.in_ch = out_ch, base_ch, stem_s2d, in_ch
         self.compute_dtype, self.autograd = compute_dtype, autograd
         blk = lambda ci, co: DoubleConv(ci, co, autograd, remat)  # noqa: E731
         self.inc = Conv3x3(in_ch * s * s + 1, b, autograd)

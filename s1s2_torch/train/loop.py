@@ -304,7 +304,30 @@ def upload(a, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-class TrainStep:
+class StepDraws:
+    """Where a step takes its per-step draws (see the module docstring):
+    ``draws`` is ``"threefry"``, ``"device"`` or ``"auto"``. The train step
+    and the progressive distillation step share it."""
+
+    def __init__(self, draws: str):
+        if draws not in ("auto", "threefry", "device"):
+            raise ValueError(f"draws must be auto, threefry or device, got {draws!r}")
+        self.draws = draws
+        self._gens: Dict[torch.device, torch.Generator] = {}
+
+    def threefry(self, device: torch.device) -> bool:
+        return self.draws == "threefry" or (self.draws == "auto" and device.type == "cpu")
+
+    def generator(self, key, step: int, device: torch.device) -> torch.Generator:
+        """``device``'s generator (one kept per device), seeded for ``step``."""
+        gen = self._gens.get(device)
+        if gen is None:
+            gen = self._gens[device] = torch.Generator(device=device)
+        gen.manual_seed(step_seed(key, step))
+        return gen
+
+
+class TrainStep(StepDraws):
     """``step(state, batch, key) → (state, metrics)``; batch = (cond
     (B,H,W,Cc), x0 (B,H,W,Ct), mask (B,H,W) or None), numpy arrays or
     tensors; key a ``core.random`` key. ``model`` is a
@@ -316,13 +339,11 @@ class TrainStep:
     def __init__(self, model, schedule: Schedule, cfg: TrainConfig, draws: str = "auto"):
         if not getattr(model, "autograd", False):
             raise ValueError("the train step needs the training path: UNetSmall(autograd=True)")
-        if draws not in ("auto", "threefry", "device"):
-            raise ValueError(f"draws must be auto, threefry or device, got {draws!r}")
-        self.model, self.schedule, self.cfg, self.draws = model, schedule, cfg, draws
+        super().__init__(draws)
+        self.model, self.schedule, self.cfg = model, schedule, cfg
         self.opt = make_optimizer(cfg)
         self.param = Parameterization(cfg.pred_param)
         self._tables: Dict[torch.device, tuple] = {}
-        self._gens: Dict[torch.device, torch.Generator] = {}
 
     def tables(self, device: torch.device):
         """(ᾱ, √ᾱ, √(1−ᾱ), band weights) on ``device``, uploaded once."""
@@ -333,9 +354,6 @@ class TrainStep:
                                             s.sqrt_one_minus_alpha_bar)) + (
                 upload(np.asarray(bw, np.float32), device) if bw else None,)
         return self._tables[device]
-
-    def threefry(self, device: torch.device) -> bool:
-        return self.draws == "threefry" or (self.draws == "auto" and device.type == "cpu")
 
     def draw(self, key, step: int, B: int, shape: Sequence[int], device: torch.device):
         """(t (B,) int32, noise f32 of ``shape``, keep (B,1,1,1) f32 or None)
@@ -350,10 +368,7 @@ class TrainStep:
                     .astype(np.float32) if cfg.cfg_drop_prob > 0.0 else None)
             return (upload(t, device), upload(noise, device),
                     None if keep is None else upload(keep, device))
-        gen = self._gens.get(device)
-        if gen is None:
-            gen = self._gens[device] = torch.Generator(device=device)
-        gen.manual_seed(step_seed(key, step))
+        gen = self.generator(key, step, device)
         t = sample_timesteps_device(gen, cfg.T, B, cfg.t_sampler, cfg.high_t_frac,
                                     cfg.high_t_min_ratio)
         noise = torch.randn(tuple(shape), generator=gen, device=device)

@@ -61,12 +61,14 @@ class RunConfig:
     device: str = "cuda"
 
 
-def _device(name: str) -> torch.device:
+def resolve_device(name, what: str = "training") -> torch.device:
+    """``name`` as a device; a CUDA device gets its index, and with no card
+    it raises: ``what`` runs on the card unless the caller asks for the CPU."""
     device = torch.device(name)
     if device.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError("training runs on the card by default and no CUDA card is "
-                               "present; pass --device cpu to train on the CPU")
+            raise RuntimeError(f"{what} runs on the card by default and no CUDA card is "
+                               "present; pass --device cpu to run on the CPU")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
@@ -81,7 +83,7 @@ def train_loop(run: RunConfig, cfg: TrainConfig,
     if run.spatial_shard or run.model_shard > 1:
         raise NotImplementedError("spatial_shard and model_shard > 1 shard the step over a "
                                   "device mesh: not ported yet (ROADMAP §1 item 7, 7c)")
-    device = _device(run.device)
+    device = resolve_device(run.device)
     ds = NpzPatchDataset(run.patch_dir, max_files=run.max_patches)
     Cc, Ct, H, W = ds.probe_channels()
     if run.cache_dir:

@@ -155,7 +155,7 @@ SCRIPT = textwrap.dedent("""
         b8 = bench_int8.run(batch=2, steps=1, iters=1, quant_up=True, size=16, base_ch=8,
                             device="cpu", emit=lambda _: None)
     # the training slice: one train step, a train_loop with its state file
-    # and metrics, and the dispatcher (train is ported, distill is not)
+    # and metrics, and the dispatcher (train and distill are ported)
     from s1s2_torch.train.loop import TrainConfig, create_train_state, make_train_step
     from s1s2_torch.train.trainer import RunConfig, train_loop
     from s1s2_torch.models.unet import UNetSmall
@@ -175,7 +175,22 @@ SCRIPT = textwrap.dedent("""
             dispatch(["train", "--help"])
         except SystemExit as e:
             rc_train = e.code
-    rc_distill = dispatch(["distill"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        try:
+            dispatch(["distill", "--help"])
+        except SystemExit as e:
+            rc_distill = e.code
+    # the distillation slice: a progressive step and an endpoint step
+    from s1s2_torch.train import distill
+    dcfg = distill.DistillConfig(teacher_steps=2)
+    dmodel = UNetSmall(4, 8, autograd=True)
+    dstate, dm = distill.make_distill_step(dmodel, Schedule.cosine(1000), dcfg, 1)(
+        distill.create_distill_state(st8, dcfg), distill.inference_net(dmodel, st8, "cpu"),
+        (gt8, gt8, torch.ones(gt8.shape[:3])), random.PRNGKey(0))
+    estate, em = distill.make_endpoint_distill_step(dmodel, Schedule.cosine(1000), dcfg)(
+        dstate, (gt8, gt8, torch.ones(gt8.shape[:3]), gt8, gt8))
+    distilled = [estate.step, int(em["skipped"]), bool(torch.isfinite(dm["loss"])),
+                 bool(torch.isfinite(em["loss"]))]
     loaded = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
     print(json.dumps({{"modules": mods, "shape": list(y.shape),
                       "up_convs": sorted(up.up8), "up_forward": list(y8.shape),
@@ -183,7 +198,7 @@ SCRIPT = textwrap.dedent("""
                       "bench_int8_paths": [r["path"] for r in b8["rows"]], "rc_train": rc_train,
                       "rc_distill": rc_distill, "step": [st.step, int(m["skipped"]),
                                                          bool(torch.isfinite(m["loss"]))],
-                      "trained": trained,
+                      "trained": trained, "distilled": distilled,
                       "finite": bool(torch.isfinite(y).all()), "loaded": loaded,
                       "dpm_shape": r["shape"], "dpm_finite": r["finite"],
                       "cfg_checked": cfg["quality_checked"] in (True, False),
@@ -214,11 +229,15 @@ def test_port_runs_with_jax_flax_msgpack_ml_dtypes_and_s1s2_blocked():
             "s1s2_torch.tools.bench_scene", "s1s2_torch.tools.bench_serve",
             "s1s2_torch.ops.pixel_shuffle", "s1s2_torch.train.loss", "s1s2_torch.train.loop",
             "s1s2_torch.train.trainer", "s1s2_torch.cli.train", "s1s2_torch.tools.bench_train",
-            "s1s2_torch.utils.profiling"} <= set(out["modules"])
+            "s1s2_torch.utils.profiling", "s1s2_torch.train.distill", "s1s2_torch.cli.distill",
+            "s1s2_torch.cli.make_synthetic", "s1s2_torch.tools.bench_distill",
+            "s1s2_torch.tools.score_distill_full",
+            "s1s2_torch.tools.score_width_holdout"} <= set(out["modules"])
     assert out["up_convs"] == ["up1", "up2", "up3"] and out["up_forward"] == [2, 16, 16, 4]
     assert out["scene_shape"] == [4, 40, 40] and out["served"] == [3, 16, 16, 4]
     assert out["bench_int8_paths"] == ["bf16", "int8", "int8_quant_up"]
-    assert out["rc_train"] == 0 and out["rc_distill"] == 2
+    assert out["rc_train"] == 0 and out["rc_distill"] == 0
+    assert out["distilled"] == [2, 0, True, True]
     assert out["step"] == [1, 0, True]
     assert out["trained"] == [4, 0, ["m.jsonl", "m.msgpack", "m_best.msgpack",
                                      "m_best.msgpack.loss.json", "m_last.msgpack", "p", "st"],

@@ -165,10 +165,13 @@ def test_dispatcher_runs_infer_scene_and_names_what_is_not_ported(tiny, tmp_path
     assert dispatch(["infer_scene"] + _files(tiny) + ["--out_dir", str(tmp_path / "o"),
                                                         "--device", "cpu"] + COMMON) == 0
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["shape"] == [64, 80, 4]
-    for cmd, item in (("distill", "item 6"), ("patchify", "item 7"), ("make_synthetic", "item 7")):
+    for cmd, item in (("patchify", "item 7"), ("convert_ckpt", "item 7"),
+                      ("validate_parity", "item 7")):
         assert dispatch([cmd]) == 2
         assert item in capsys.readouterr().err
-    with pytest.raises(SystemExit) as e:  # train is ported: its parser answers --help
-        dispatch(["train", "--help"])
-    assert e.value.code == 0 and "--patch_dir" in capsys.readouterr().out
+    for cmd, flag in (("train", "--patch_dir"), ("distill", "--endpoint_epochs"),
+                      ("make_synthetic", "--rich")):
+        with pytest.raises(SystemExit) as e:  # ported: its parser answers --help
+            dispatch([cmd, "--help"])
+        assert e.value.code == 0 and flag in capsys.readouterr().out
     assert dispatch(["nope"]) == 2 and dispatch([]) == 2
