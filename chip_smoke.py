@@ -170,6 +170,37 @@ Phases, each printing its own seconds:
    the snapshot and the final student scored finite; then a base-96
    progressive run (teacher steps 4, two epochs a phase), the ms a step of
    phase 0's second epoch. Exact launch counts throughout.
+4n. Panels, parity and the data and checkpoint CLIs, at full width (the
+   base-96 teachers, 256² patches; committed checkpoints and seeded data
+   only): (a) ``python -m s1s2_torch evaluate`` in process on the 32-file
+   evidence set with the ε teacher, ``--mode night_demo --save_viz_n 6``,
+   ``--mode tsweep --save_viz_n 2``, and ``--mode cfg_sweep --save_viz_n 2``
+   on the cfg_v teacher (g=3, 5 steps from t=999), and ``--mode cloudy_viz
+   --zoom 32 --zoom_k 2`` on a 32-file cloudy set (``make_synthetic_patches
+   (with_cloud=True)``): the files named as the JAX harness names them,
+   each decoded PNG of the panel's shape with its title's strongly covered
+   pixels yellow, exact launches, seconds a panel; one cloudy batch (B=2)
+   card against the CPU plain path within 1.5% of mean |pred| (4j's
+   bound). (b) ``validate_parity --pth`` on both committed crossval nets and
+   on a base-96 twin (torch's default init, seeded) at 256², B=2: each
+   within the card's bf16 rule (the port's f32 forward on the CPU within
+   ``max_abs < 1e-3`` of the twin, the converter's check, and ``rel`` ≤ 2 ×
+   the CPU plain path's bf16 ``rel``, the kernel's); a converter that
+   transposes the stem's kernel fails it. (c) ``validate_parity --full`` with the ε teacher on the
+   evidence set, ``ddim_eps``'s ``MAE_mean`` expected at the committed
+   anchor 0.44074 (the sweep and true_infer tables cut to 8 files, the
+   latter to 2 seeds, ``PARITY_CUTS``): that row PASS, every table run,
+   both reports written (the other rows are the reference's real-data
+   numbers, printed).
+   (d) ``python -m s1s2_torch patchify`` on a seeded 1536² raw scene of
+   ``.npy`` bands at the reference's names (capped at 48 patches), then
+   ``evaluate --mode night_demo`` on its patches; ``tools.bench_patchify``
+   at 1536². (e) ``convert_ckpt`` on the ε crossval net: its msgpack's
+   forward on the card bit-equal to the harness's direct ``.pth`` load;
+   ``tools.archive_ckpt`` of it loads. (f) ``tools.demo_distill_viz`` with
+   the ε teacher and ``distill_eps_student1`` on the first 4 evidence
+   files: each row within 0.005 of the committed ``distill_demo/summary.json``
+   (4m's bound on the committed score replays).
 5. Timing at B=128 with CUDA events: each kernel at each path shape beside
    its plain version, ``F.conv2d`` (bf16 mode only) and its bound.
 5b. Timing at the base-96 shapes (bf16 at line 1's B=128, int8 at line 2's
@@ -180,7 +211,7 @@ Phases, each printing its own seconds:
    their plain versions, ``torch.matmul``/``torch._int_mm`` and
    ``x[1:-1]*2``.
 
-Each path of 4-4m is driven with every launch count set to 0 just before it
+Each path of 4-4n is driven with every launch count set to 0 just before it
 and read just after; a kernel of the path that was not launched fails it.
 Then a ``{"kernels": [...]}`` line (the conv rows' times are those of the
 24x4 main path at B=128, and the per-channel int8 row's those of the CFG
@@ -198,6 +229,7 @@ of 4m) runs cuDNN's conv through autograd, where the JAX package runs XLA's.
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -266,6 +298,13 @@ DISTILL_EP, DISTILL_SNAP = 25, 10
 R2_FLAGS = ["--student_base_ch", "24", "--student_s2d", "4", "--skip_progressive",
             "--endpoint_teacher_steps", "1", "--endpoint_seeds", "8", "--lr", "3e-4",
             "--batch_size", "8"]
+# 4n: the panel modes' expected files, the cloudy set, patchify's raw scene
+# (side, patch cap) and the committed distillation demo's rows
+PANEL_SHAPES = {"night": (512, 3 * 512, 3), "gt": (1024, 3 * 512, 3)}
+CLOUDY_ZOOM, CLOUDY_ZOOM_K = 32, 2
+PATCHIFY_SCENE, PATCHIFY_MAX = 1536, 48
+PARITY_CUTS = {"sweep_eps": {"max_files": 8}, "true_infer_eps": {"n_seeds": 2, "max_files": 8}}
+DEMO_K = 4
 QUANT_OPS = ("conv3x3_relu", "conv3x3_relu_int8", "ps_conv_transpose_2x2",
              "ps_conv_transpose_2x2_int8", "conv1x1", "max_pool2")
 # the ops a forward must give bit for bit on the card and the CPU
@@ -939,6 +978,348 @@ def distill_phase(torch, dev, card, drive, require, path_launches):
         p96 = score_file(f"{td}/p96.msgpack", 96, 1)
         require(np.isfinite(p96), f"distill cli base-96: MAE {p96}")
     return {"s_per_epoch_24x4": s_per_epoch, "ms_per_step_96": epoch2 / n_steps * 1e3}
+
+def panels_phase(torch, dev, card, drive, require, path_launches):
+    """4n: the panel modes, forward and table parity, patchify, the
+    checkpoint tools and the distillation demo (see the module
+    docstring)."""
+    import numpy as np
+
+    from s1s2_torch.__main__ import main as dispatch
+    from s1s2_torch.cli import validate_parity
+    from s1s2_torch.core.schedule import Schedule
+    from s1s2_torch.data.synthetic import make_synthetic_patches
+    from s1s2_torch.eval import harness
+    from s1s2_torch.eval.parity import REFERENCE_EXPECTED
+    from s1s2_torch.headline import CKPT_DIR
+    from s1s2_torch.models import convert
+    from s1s2_torch.models.torch_twin import build_torch_unet
+    from s1s2_torch.sampling.grids import round_unique_grid
+    from s1s2_torch.sampling.samplers import ddim_linspace_coefs
+    from s1s2_torch.tools import archive_ckpt, bench_patchify, demo_distill_viz
+    from s1s2_torch.viz.render import read_png, save_panel, title_coverage
+
+    repo = Path(__file__).resolve().parent
+    teacher = str(CKPT_DIR / "distill_eps_teacher.bf16.msgpack")
+    cfg_teacher = str(CKPT_DIR / "cfg_v_teacher.bf16.msgpack")
+    crossval = repo / "examples" / "ref_crossval"
+    zero = {"conv3x3_relu": 0, "conv3x3_relu_int8": 0, "fused_ddim_update": 0, "matmul": 0,
+            "halo_rows_x2": 0}
+    sched = Schedule.cosine(1000)
+
+    def steps(t_start, n):
+        return len(ddim_linspace_coefs(sched, t_start, n)[0]) - 1
+
+    def exact(path, conv, ddim=0):
+        want = {**zero, "conv3x3_relu": conv, "fused_ddim_update": ddim}
+        require(path_launches[path] == want,
+                f"{path}: launches {path_launches[path]}, want {want}")
+
+    def quiet(fn):
+        def run():
+            with contextlib.redirect_stdout(io.StringIO()):
+                return fn()
+        return run
+
+    def timed(path, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = drive(path, quiet(fn))
+        return out, time.perf_counter() - t0
+
+    def check_panels(d, want):
+        """The files in ``d`` are ``want`` {name: (shape, title or None)}; each
+        decodes to its shape and its title's strongly covered pixels are
+        yellow; returns the seconds to decode them."""
+        got = sorted(f for f in os.listdir(d) if f.endswith(".png"))
+        require(got == sorted(want), f"{d}: files {got}, want {sorted(want)}")
+        for name, (shape, title) in want.items():
+            img = read_png(os.path.join(d, name))
+            require(img.shape == shape, f"{name}: shape {img.shape}, want {shape}")
+            if title:
+                cov, dx, dy = title_coverage(title)
+                ys, xs = np.nonzero(cov >= 240)
+                px = img[5 + dy + ys, 10 + dx + xs].astype(int)
+                require(len(ys) > 0 and bool(((px[:, :2] >= 240).all(1)
+                                              & (px[:, 2] <= 15)).all()),
+                        f"{name}: the title {title!r} is not drawn in yellow")
+
+    def evaluate(out, flags):
+        return dispatch(["evaluate", "--out_dir", out, "--device", str(dev)] + flags)
+
+    nb = FULL_FILES // FULL_BATCH
+    with tempfile.TemporaryDirectory() as td:
+        ev, cloudy = f"{td}/evidence", f"{td}/cloudy"
+        make_synthetic_patches(ev, n=FULL_FILES, size=SIZE, seed=0)
+        make_synthetic_patches(cloudy, n=FULL_FILES, size=SIZE, seed=0, with_cloud=True)
+        names = sorted(f for f in os.listdir(ev) if f.endswith(".npz"))
+
+        # (a) the panel modes through the evaluate CLI
+        base = ["--patch_dir", ev, "--ckpt", teacher]
+        _, dt = timed("panels night_demo", lambda: evaluate(
+            f"{td}/night", base + ["--mode", "night_demo", "--save_viz_n", "6"]))
+        night_fwd = steps(200, FULL_STEPS)  # one batch of 8 holds the 6 panels
+        exact("panels night_demo", 13 * night_fwd, night_fwd)
+        check_panels(f"{td}/night/previews",
+                     {f"{i:03d}_night_panel.png": (PANEL_SHAPES["night"],
+                                                    f"Night demo: {names[i]}") for i in range(6)})
+        print(f"night_demo: 6 panels in {dt:.2f} s ({dt / 6:.3f} s a panel, one batch of "
+              f"{FULL_BATCH} x {FULL_STEPS} steps) on {card}", flush=True)
+        # a panel's seconds split: the card's sampling (CUDA events, one batch
+        # of 8 as night_demo samples it) against the host's render
+        ctx = harness.EvalContext(harness.EvalConfig(patch_dir=ev, out_dir=f"{td}/split",
+                                                     ckpt=teacher, device=str(dev)))
+        (cond,) = ctx.tensors(np.stack([ctx.ds[i]["cond"] for i in range(FULL_BATCH)]))
+        noise = ctx.per_file_noise(list(range(FULL_BATCH)))
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        x0 = harness._ddim_from_init(ctx.denoise_fn(cond), noise, ctx.schedule, 200, FULL_STEPS)
+        ev1.record()
+        torch.cuda.synchronize()
+        sample_s = ev0.elapsed_time(ev1) / 1e3 / FULL_BATCH
+        x0_np, cond_np = x0.cpu().numpy(), cond.cpu().numpy()
+        gt_np = np.stack([ctx.ds[i]["target"] for i in range(2)])
+        t0 = time.perf_counter()
+        save_panel(x0_np[0], None, cond_np[0], f"{td}/split/a.png", title="Night demo: x.npz")
+        t1 = time.perf_counter()
+        save_panel(x0_np[1], gt_np[1], cond_np[1], f"{td}/split/b.png", title="Cloudy case: x",
+                   zoom=CLOUDY_ZOOM, zoom_k=CLOUDY_ZOOM_K)
+        t2 = time.perf_counter()
+        print(f"a panel's seconds: the card samples a file in {sample_s:.4f} s ({FULL_STEPS} "
+              f"steps at B={FULL_BATCH}); the host renders a panel in {t1 - t0:.3f} s without "
+              f"GT, {t2 - t1:.3f} s with GT and {CLOUDY_ZOOM_K} zoom windows", flush=True)
+        del ctx, cond, noise, x0
+
+        tv = harness.EvalConfig(patch_dir=ev, out_dir="").t_values
+        mid = tv[len(tv) // 2]
+        _, dt = timed("panels tsweep", lambda: evaluate(
+            f"{td}/tsweep", base + ["--mode", "tsweep", "--save_viz_n", "2"]))
+        exact("panels tsweep", nb * len(tv) * 13)
+        check_panels(f"{td}/tsweep/previews",
+                     {f"{i:03d}_tsweep_t{mid}.png": (PANEL_SHAPES["gt"],
+                                                      f"t-sweep middle t={mid}") for i in range(2)})
+        print(f"tsweep: {len(tv)} t x {FULL_FILES} files, 2 panels, {dt:.2f} s on {card}",
+              flush=True)
+
+        grid = round_unique_grid(999, 5, 1000)
+        _, dt = timed("panels cfg_sweep", lambda: evaluate(
+            f"{td}/cfg", ["--patch_dir", ev, "--ckpt", cfg_teacher, "--mode", "cfg_sweep",
+                          "--pred_param", "v", "--guidance_scales", "3", "--t_start", "999",
+                          "--ddim_steps", "5", "--save_viz_n", "2"]))
+        exact("panels cfg_sweep", nb * len(grid) * 13)
+        check_panels(f"{td}/cfg/previews", {
+            f"cfg_g3_{os.path.splitext(names[i])[0]}.png": (
+                PANEL_SHAPES["gt"], f"CFG g=3  t_start=999 steps=5  {names[i]}")
+            for i in range(2)})
+        print(f"cfg_sweep: g=3, {len(grid)} stacked CFG forwards a batch, 2 panels, {dt:.2f} s "
+              f"on {card}", flush=True)
+
+        top = harness.EvalConfig(patch_dir=cloudy, out_dir="").select_top_cloud
+        ranked = harness.cloud_ranking(harness.EvalContext(
+            harness.EvalConfig(patch_dir=cloudy, out_dir=f"{td}/rank", device="cpu")))[:top]
+        r, dt = timed("panels cloudy_viz", lambda: evaluate(
+            f"{td}/cloudy_out", ["--patch_dir", cloudy, "--ckpt", teacher, "--mode",
+                                 "cloudy_viz", "--zoom", str(CLOUDY_ZOOM), "--zoom_k",
+                                 str(CLOUDY_ZOOM_K)]))
+        cloudy_fwd = -(-top // FULL_BATCH) * steps(200, 20)  # real batches, the last short
+        exact("panels cloudy_viz", 13 * cloudy_fwd, cloudy_fwd)
+        zsh = (2 * CLOUDY_ZOOM, 2 * CLOUDY_ZOOM, 3)
+        want = {}
+        for i, (_, fname, _) in enumerate(ranked):
+            want[f"{i:03d}_cloudy_panel.png"] = (PANEL_SHAPES["gt"], f"Cloudy case: {fname}")
+            for k in range(CLOUDY_ZOOM_K):
+                for part in ("s1", "gt_true", "pred_true"):
+                    want[f"{i:03d}_cloudy_panel_{part}_zoom{k}.png"] = (zsh, None)
+        check_panels(f"{td}/cloudy_out/previews", want)
+        print(f"cloudy_viz: the {top} cloudiest of {FULL_FILES} (fractions "
+              f"{[round(-f, 3) for f, _, _ in ranked]}), {top} panels and "
+              f"{top * 3 * CLOUDY_ZOOM_K} zoom crops in {dt:.2f} s ({dt / top:.3f} s a panel) "
+              f"on {card}", flush=True)
+
+        # one cloudy batch (B=2) card against the CPU plain path
+        t0 = time.perf_counter()
+        preds = {}
+        for where in (str(dev), "cpu"):
+            ctx = harness.EvalContext(harness.EvalConfig(
+                patch_dir=cloudy, out_dir=f"{td}/cmp_{where}", ckpt=teacher,
+                mode="cloudy_viz", device=where))
+            idxs = [i for _, _, i in ranked[:2]]
+            items = [harness.load_patch(ctx.ds.path(i)) for i in idxs]
+            cond, gt = ctx.tensors(np.stack([d["cond"] for d in items]),
+                                   np.stack([d["target"] for d in items]))
+            preds[where] = harness._make_recon_sampler(ctx, 200, 20)(
+                cond, gt, ctx.per_file_noise(idxs),
+                ctx.per_file_keys(idxs, salt=harness.ETA_SALT)).cpu()
+        d = float((preds[str(dev)] - preds["cpu"]).abs().mean())
+        tol = 0.015 * float(preds["cpu"].abs().mean())
+        print(f"cloudy_viz batch B=2 card vs CPU plain path: mean |d| {d:.3e} (tolerance "
+              f"{tol:.3e} = 1.5% of mean |pred|), {time.perf_counter() - t0:.2f} s with the "
+              f"CPU's", flush=True)
+        require(d <= tol and bool(torch.isfinite(preds[str(dev)]).all()),
+                f"cloudy_viz card vs CPU: {d} > {tol}")
+
+        # (b) forward parity: both crossval nets and a base-96 twin at 256²
+        torch.manual_seed(0)
+        twin = f"{td}/twin96.pth"
+        torch.save(build_torch_unet(8, 4, 96).state_dict(), twin)
+        for label, pth, extra in (("ref_eps_model", str(crossval / "ref_eps_model.pth"), []),
+                                  ("ref_v_model", str(crossval / "ref_v_model.pth"), []),
+                                  ("base-96 twin", twin, ["--image_size", str(SIZE),
+                                                          "--batch", "2"])):
+            rep, dt = timed(f"parity {label}", lambda pth=pth, extra=extra: validate_parity.main(
+                ["--pth", pth, "--device", str(dev)] + extra))
+            print(f"validate_parity {label}: max_abs {rep['max_abs']:.4e}, mean_abs "
+                  f"{rep['mean_abs']:.4e}, rel {rep['rel']:.4e} (CPU plain bf16 rel "
+                  f"{rep['cpu_bf16_rel']:.4e}, CPU f32 max_abs {rep['f32_max_abs']:.4e}; rule "
+                  f"{rep['rule']}), {dt:.2f} s on {card}", flush=True)
+            require(rep["pass"] and rep["compute_dtype"] == "bfloat16"
+                    and rep["rule"] == "f32_max_abs < 0.001 and rel <= 2 x cpu_bf16_rel",
+                    f"validate_parity {label}: {rep}")
+            exact(f"parity {label}", 13)
+        # a converter that transposes the stem's kernel in space must fail
+        right = convert.torch_state_dict_to_params
+
+        def wrong(sd):
+            out = right(sd)
+            k = out["params"]["inc"]["kernel"]
+            out["params"]["inc"]["kernel"] = np.ascontiguousarray(k.transpose(1, 0, 2, 3))
+            return out
+
+        convert.torch_state_dict_to_params = wrong
+        try:
+            rep = validate_parity.main(["--pth", str(crossval / "ref_eps_model.pth"),
+                                        "--device", str(dev)])
+        finally:
+            convert.torch_state_dict_to_params = right
+        print(f"validate_parity with a transposed stem kernel: pass {rep['pass']}, CPU f32 "
+              f"max_abs {rep['f32_max_abs']:.4e}, rel {rep['rel']:.4e}", flush=True)
+        require(not rep["pass"], f"validate_parity passed a wrong conversion: {rep}")
+
+        # (c) table parity: the ε teacher on the evidence set, ddim_eps's
+        # MAE_mean expected at the committed anchor; the sweep and
+        # true_infer tables cut in depth (their noise is drawn on the host,
+        # 0.8 s a batch)
+        with open(f"{td}/expected.json", "w") as f:
+            json.dump({"ddim_eps": {"expect": {"MAE_mean": TEACHER_ANCHOR}}, **{
+                k: {"config": {**REFERENCE_EXPECTED[k]["config"], **v}}
+                for k, v in PARITY_CUTS.items()}}, f)
+        rep, dt = timed("parity full", lambda: validate_parity.main(
+            ["--full", "--patch_dir", ev, "--out_dir", f"{td}/parity", "--eps_ckpt", teacher,
+             "--expected", f"{td}/expected.json", "--device", str(dev)]))
+        for row in rep["rows"]:
+            print(f"parity {row['table']} {row['key']}: expected {row['expected']}, actual "
+                  f"{row['actual']}, rel_err {row['rel_err']} {'PASS' if row['ok'] else 'FAIL'}",
+                  flush=True)
+        print(f"validate_parity --full: {dt:.2f} s on {card}; tables {rep['tables_ran']}, "
+              f"{rep['n_pass']} pass, {rep['n_fail']} fail (the reference's real-data rows "
+              f"cannot hold on synthetic data)", flush=True)
+        ddim_row = [r for r in rep["rows"] if r["table"] == "ddim_eps"]
+        require(len(ddim_row) == 1 and ddim_row[0]["ok"]
+                and abs(ddim_row[0]["actual"] - TEACHER_ANCHOR) < MAE_SLACK,
+                f"parity ddim_eps: {ddim_row}")
+        require(rep["tables_ran"] == ["ddim_eps", "sweep_eps", "true_infer_eps"]
+                and all(os.path.isfile(f"{td}/parity/parity_report.{e}") for e in ("json", "txt")),
+                f"parity --full: tables {rep['tables_ran']}")
+        sweep = {**REFERENCE_EXPECTED["sweep_eps"]["config"], **PARITY_CUTS["sweep_eps"]}
+        sweep_steps = sum(steps(t, n) for t in sweep["t_start_grid"]
+                          for n in sweep["ddim_steps_grid"])
+        ti = {**REFERENCE_EXPECTED["true_infer_eps"]["config"], **PARITY_CUTS["true_infer_eps"]}
+        ddim_fwd = (nb * steps(200, FULL_STEPS)
+                    + -(-sweep["max_files"] // FULL_BATCH) * sweep_steps
+                    + ti["n_seeds"] * -(-ti["max_files"] // FULL_BATCH)
+                    * steps(ti["t_start"], ti["ddim_steps"]))
+        exact("parity full", 13 * ddim_fwd, ddim_fwd)
+
+        # (d) patchify: a seeded raw scene of .npy bands at the reference's names
+        raw = f"{td}/raw/scene_000.data"
+        os.makedirs(raw)
+        rng = np.random.default_rng(0)
+        n = PATCHIFY_SCENE
+        yy, xx = np.mgrid[0:n, 0:n].astype(np.float32) / n
+        field = 0.5 + 0.25 * np.sin(12 * xx) * np.cos(9 * yy)
+        for b in ("B2", "B3", "B4", "B8"):
+            np.save(f"{raw}/{b}.img.npy", (10000 * np.clip(
+                field + rng.normal(0, 0.05, (n, n)), 0, 1)).astype(np.float32))
+        for name, lo, hi in (("Sigma0_HH_db_m", -20, -5), ("Sigma0_HV_db_m", -25, -10),
+                             ("projectedLocalIncidenceAngle_m", 20, 50),
+                             ("elevation_ref_egm2008", 0, 500)):
+            np.save(f"{raw}/{name}.img.npy", rng.uniform(lo, hi, (n, n)).astype(np.float32))
+        colloc = np.ones((n, n), np.float32)
+        colloc[:, : n // 8] = 0
+        np.save(f"{raw}/collocationFlags.img.npy", colloc)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            dispatch(["patchify", "--base-dir", f"{td}/raw", "--output-dir", f"{td}/patches",
+                      "--max-patches", str(PATCHIFY_MAX)])
+        man = json.loads(buf.getvalue().strip().splitlines()[-1])
+        dt = time.perf_counter() - t0
+        print(f"patchify {n}x{n} scene: {man['total_patches']} patches (cap {PATCHIFY_MAX}), "
+              f"skipped validratio {man['validratio_skipped']} var {man['var_skipped']} dark "
+              f"{man['dark_skipped']} texture {man['texture_skipped']}; {dt:.2f} s with "
+              f"previews", flush=True)
+        require(man["total_patches"] == PATCHIFY_MAX, f"patchify: {man}")
+        _, dt = timed("panels night_demo on patchify's patches", lambda: evaluate(
+            f"{td}/night_raw", ["--patch_dir", f"{td}/patches", "--ckpt", teacher, "--mode",
+                                "night_demo", "--save_viz_n", "6"]))
+        exact("panels night_demo on patchify's patches", 13 * night_fwd, night_fwd)
+        check_panels(f"{td}/night_raw/previews", {
+            f"{i:03d}_night_panel.png": (PANEL_SHAPES["night"],
+                                         f"Night demo: patch_{i:06d}.npz") for i in range(6)})
+        print(f"raw scene -> patchify -> night_demo: 6 panels in {dt:.2f} s on {card}",
+              flush=True)
+        bp = bench_patchify.run(n)
+        print(f"bench_patchify {n}: {json.dumps(bp)} (host)", flush=True)
+
+        # (e) checkpoints: convert_ckpt's msgpack gives the .pth's forward bit
+        # for bit on the card; archive_ckpt's bf16 file loads
+        pth = str(crossval / "ref_eps_model.pth")
+        with contextlib.redirect_stdout(io.StringIO()):
+            dispatch(["convert_ckpt", "--pth", pth, "--out", f"{td}/ref_eps.msgpack"])
+            archive_ckpt.main([f"{td}/ref_eps.msgpack", f"{td}/ref_eps.bf16.msgpack"])
+        x = torch.rand((2, SIZE, SIZE, 8), generator=torch.Generator().manual_seed(0)).to(dev)
+        tt = torch.tensor([999, 200], dtype=torch.int32, device=dev)
+        outs = {}
+        for label, path in (("pth", pth), ("msgpack", f"{td}/ref_eps.msgpack"),
+                            ("bf16 archive", f"{td}/ref_eps.bf16.msgpack")):
+            ctx = harness.EvalContext(harness.EvalConfig(
+                patch_dir=ev, out_dir=f"{td}/ck_{label.replace(' ', '_')}", ckpt=path,
+                base_ch=16, device=str(dev)))
+            with torch.no_grad():
+                outs[label] = drive(f"ckpt {label}", lambda ctx=ctx: ctx.model(x, tt).cpu())
+            exact(f"ckpt {label}", 13)
+        same = torch.equal(outs["pth"], outs["msgpack"])
+        d_arch = float((outs["bf16 archive"] - outs["pth"]).abs().max())
+        print(f"convert_ckpt: the msgpack's forward bit-equal to the .pth's on the card: {same}; "
+              f"the bf16 archive loads, max |d| {d_arch:.3e} from the .pth's forward (the net "
+              f"rounds its weights to bf16 either way)", flush=True)
+        require(same and bool(torch.isfinite(outs["bf16 archive"]).all()),
+                "convert_ckpt: the msgpack's forward differs from the .pth's")
+
+        # (f) the distillation demo against the committed rows
+        work = f"{td}/demo_work"
+        os.makedirs(work)
+        os.symlink(ev, f"{work}/patches")
+        rows, dt = timed("distill demo", lambda: demo_distill_viz.main(
+            ["--workdir", work, "--out", f"{td}/demo", "--k", str(DEMO_K), "--teacher", teacher,
+             "--student", str(CKPT_DIR / "distill_eps_student1.bf16.msgpack"), "--device",
+             str(dev)]))
+        exact("distill demo", 13 * (steps(200, 20) + steps(200, 1)),
+              steps(200, 20) + steps(200, 1))
+        with open(repo / "examples" / "results_synthetic" / "distill_demo" / "summary.json") as f:
+            ref = json.load(f)["rows"]
+        for r, w in zip(rows, ref):
+            print(f"distill demo patch {r['patch']}: teacher ddim-20 {r['teacher20_mae']:.5f} "
+                  f"({r['teacher20_mae'] - w['teacher20_mae']:+.5f}), student ddim-1 "
+                  f"{r['student1_mae']:.5f} ({r['student1_mae'] - w['student1_mae']:+.5f}) "
+                  f"against the committed rows", flush=True)
+            require(all(abs(r[k] - w[k]) <= DISTILL_MAE_SLACK
+                        for k in ("teacher20_mae", "student1_mae")),
+                    f"distill demo: {r} not within {DISTILL_MAE_SLACK} of {w}")
+        require(len(rows) == len(ref) == DEMO_K
+                and sorted(os.listdir(f"{td}/demo")) == sorted(
+                    [f"patch{i:02d}_gt_teacher20_student1.png" for i in range(DEMO_K)]
+                    + ["summary.json"]), f"distill demo: {sorted(os.listdir(td + '/demo'))}")
+        print(f"distill demo: {DEMO_K} strips in {dt:.2f} s on {card}", flush=True)
 
 
 def main():
@@ -1841,6 +2222,10 @@ def main():
     with Phase("distillation: the steps card vs CPU, the committed score replays, the held-out "
                "widths, the distill CLI at full width"):
         distill_phase(torch, dev, card, drive, require, path_launches)
+        torch.cuda.empty_cache()
+
+    with Phase("panels, parity and the data and checkpoint CLIs at full width"):
+        panels_phase(torch, dev, card, drive, require, path_launches)
         torch.cuda.empty_cache()
 
     with Phase("probe path: probe_int8 all"):

@@ -15,20 +15,21 @@ COMMANDS = {
     "train": "s1s2_torch.cli.train",
     "distill": "s1s2_torch.cli.distill",
     "make_synthetic": "s1s2_torch.cli.make_synthetic",
+    "patchify": "s1s2_torch.cli.patchify",
+    "convert_ckpt": "s1s2_torch.cli.convert_ckpt",
+    "validate_parity": "s1s2_torch.cli.validate_parity",
 }
-NOT_PORTED = {
-    "patchify": "ROADMAP §1 item 7",
-    "convert_ckpt": "ROADMAP §1 item 7",
-    "validate_parity": "ROADMAP §1 item 7",
-}
+# commands of the JAX package the port does not have yet, with the ROADMAP
+# item that ports them (none is left)
+NOT_PORTED = {}
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m s1s2_torch <command> [args]\ncommands: "
-              + " ".join(sorted(COMMANDS)) + "\nnot ported yet: "
-              + " ".join(sorted(NOT_PORTED)))
+              + " ".join(sorted(COMMANDS))
+              + ("\nnot ported yet: " + " ".join(sorted(NOT_PORTED)) if NOT_PORTED else ""))
         return 0 if argv else 2
     cmd = argv[0]
     if cmd in NOT_PORTED:

@@ -5,9 +5,8 @@ the same flags, defaults and modes (``eval/harness.py:MODES``), and
     python -m s1s2_torch.cli.evaluate --mode ddim --patch_dir P --out_dir out \
         --ckpt examples/checkpoints/distill_eps_teacher.bf16.msgpack
 
-Prints the mode's result as one JSON line and returns it. The modes that
-render only comparison panels (``night_demo``, ``cloudy_viz``) and
-``--mesh_data`` raise ``NotImplementedError`` (ROADMAP §1 item 7).
+Prints the mode's result as one JSON line and returns it.
+``--mesh_data`` raises ``NotImplementedError`` (ROADMAP §1 item 7).
 """
 
 import argparse

@@ -16,11 +16,11 @@ JAX harness's names, columns and number formats.
 
 Modes (:data:`MODES`): ``ddim``, ``ddim_sweep``, ``eps``, ``vdiag``,
 ``seed_stats``, ``per_band``, ``ablate``, ``tsweep``, ``true_infer``,
-``onestep``, ``limitation``, ``baseline_bicubic``, ``baseline_linear`` and
-``cfg_sweep``. What needs the comparison panels (``save_panel``:
-``night_demo``, ``cloudy_viz``, and ``tsweep`` or ``cfg_sweep`` with
-``--save_viz_n > 0``) and ``--mesh_data`` are ROADMAP §1 item 7 and raise
-``NotImplementedError``.
+``onestep``, ``limitation``, ``baseline_bicubic``, ``baseline_linear``,
+``cfg_sweep``, and the panel modes ``night_demo`` and ``cloudy_viz``;
+``tsweep`` and ``cfg_sweep`` write comparison panels as their previews
+(``viz/render.save_panel``). ``--mesh_data`` is ROADMAP §1 item 7c and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -70,9 +70,6 @@ LIMITATION_SALT = 300
 PARTIAL_SALT = 310
 
 NOT_PORTED = "is not ported yet (ROADMAP §1 item 7)"
-# modes whose previews are save_panel's comparison panels
-PANEL_MODES = ("tsweep", "cfg_sweep")
-PANEL_ONLY_MODES = ("night_demo", "cloudy_viz")
 
 
 @dataclasses.dataclass
@@ -143,16 +140,8 @@ def stable_file_id(name: str) -> int:
 
 def check_ported(cfg: EvalConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not have yet."""
-    what = None
     if cfg.mesh_data:
-        what = "--mesh_data (torch.distributed)"
-    elif cfg.mode in PANEL_ONLY_MODES:
-        what = f"--mode {cfg.mode} (save_panel's comparison panels, viz/render.py)"
-    elif cfg.mode in PANEL_MODES and cfg.save_viz_n > 0:
-        what = (f"--mode {cfg.mode} with --save_viz_n > 0 (save_panel's comparison "
-                f"panels, viz/render.py)")
-    if what:
-        raise NotImplementedError(f"{what} {NOT_PORTED}")
+        raise NotImplementedError(f"--mesh_data (torch.distributed) {NOT_PORTED}")
 
 
 class EvalContext:
@@ -698,21 +687,33 @@ def run_ablate(ctx: EvalContext) -> Dict:
 
 def run_tsweep(ctx: EvalContext) -> Dict:
     """One-step recon at each of ``t_values`` with one shared noise (salt
-    99, file 0); with ``--save_viz_n 0`` only (its previews are panels)."""
+    99, file 0); the first ``save_viz_n`` files' panels of the middle t's
+    prediction."""
     cfg = ctx.cfg
     rows = []
     results: Dict[int, List[float]] = {}
     samplers = {int(t): _one_step_sampler(ctx, int(t)) for t in cfg.t_values}
+    mid_t = max(1, min(int(cfg.t_values[len(cfg.t_values) // 2]), cfg.T - 1))
+    saved = 0
     for (cond, gt, mask), names, n_valid in eval_batches(ctx.eval_ds, cfg.batch_size):
         noise = ctx.per_file_noise([0] * cfg.batch_size, salt=99)
         cond_t, gt_t, mask_t = ctx.tensors(cond, gt, mask)
+        outs = {}
         for t in cfg.t_values:
             t_c = max(1, min(int(t), cfg.T - 1))
-            x0 = samplers[int(t)](cond_t, gt_t, noise)
+            outs[t_c] = x0 = samplers[int(t)](cond_t, gt_t, noise)
             mae_b, mse_b = _np(*M.per_file_mae_mse(x0, gt_t, mask_t))
             for j in range(n_valid):
                 rows.append([names[j], t_c, f"{mae_b[j]:.6f}", f"{mse_b[j]:.6f}"])
                 results.setdefault(t_c, []).append(float(mae_b[j]))
+        n_viz = min(cfg.save_viz_n - saved, n_valid)
+        if n_viz > 0:
+            mid = _np(outs[mid_t])[0]
+            for j in range(n_viz):
+                V.save_panel(mid[j], gt[j], cond[j],
+                             os.path.join(ctx.viz_dir, f"{saved:03d}_tsweep_t{mid_t}.png"),
+                             title=f"t-sweep middle t={mid_t}")
+                saved += 1
     _write_csv(os.path.join(cfg.out_dir, "tsweep.csv"), ["file", "t", "MAE", "MSE"], rows)
     return {t: float(np.mean(v)) for t, v in results.items()}
 
@@ -1012,12 +1013,23 @@ def run_cfg_sweep(ctx: EvalContext) -> Dict:
                                     Parameterization.V, eta=cfg.eta, key=eta_keys)
 
         maes, mses, psnrs = [], [], []
+        viz_left = cfg.save_viz_n
         for (cond, gt, mask), names, n_valid in eval_batches(ctx.eval_ds, cfg.batch_size):
             padded = _padded(ctx, names, n_valid)
             cond_t, gt_t, mask_t = ctx.tensors(cond, gt, mask)
             with torch.no_grad():
                 x0 = generate(cond_t, ctx.per_file_noise(padded),
                               ctx.per_file_keys(padded, salt=ETA_SALT))
+            n_viz = min(viz_left, n_valid)
+            if n_viz > 0:
+                x0_np = _np(x0)[0]
+                for j in range(n_viz):
+                    V.save_panel(x0_np[j], gt[j], cond[j],
+                                 os.path.join(ctx.viz_dir,
+                                              f"cfg_g{g:g}_{os.path.splitext(names[j])[0]}.png"),
+                                 title=f"CFG g={g:g}  t_start={cfg.t_start} "
+                                       f"steps={cfg.ddim_steps}  {names[j]}")
+                viz_left -= n_viz
             mae_b, mse_b = _np(*M.per_file_mae_mse(x0, gt_t, mask_t))
             maes += list(mae_b[:n_valid])
             mses += list(mse_b[:n_valid])
@@ -1033,10 +1045,63 @@ def run_cfg_sweep(ctx: EvalContext) -> Dict:
     return results
 
 
-def _panel_only(ctx: EvalContext) -> Dict:
-    """``night_demo`` and ``cloudy_viz`` render only comparison panels;
-    ``check_ported`` refuses them before a context is made."""
-    raise NotImplementedError(f"--mode {ctx.cfg.mode} {NOT_PORTED}")
+def run_night_demo(ctx: EvalContext) -> Dict:
+    """GT-free generation panels: ε linspace DDIM from each file's noise at
+    ``t_start`` with ``ddim_steps``, one panel a file (S1 | pred | CIR
+    pred) until ``max(1, save_viz_n)`` are written; batches after that are
+    not run."""
+    cfg = ctx.cfg
+    n = 0
+    for (cond, gt, mask), names, n_valid in eval_batches(ctx.eval_ds, cfg.batch_size):
+        (cond_t,) = ctx.tensors(cond)
+        noise = ctx.per_file_noise(_padded(ctx, names, n_valid))
+        x0 = _ddim_from_init(ctx.denoise_fn(cond_t), noise, ctx.schedule, cfg.t_start,
+                             cfg.ddim_steps)
+        x0_np = _np(x0)[0]
+        for j in range(n_valid):
+            if n >= max(1, cfg.save_viz_n):
+                return {"panels": n}
+            V.save_panel(x0_np[j], None, cond[j],
+                         os.path.join(ctx.viz_dir, f"{n:03d}_night_panel.png"),
+                         title=f"Night demo: {names[j]}")
+            n += 1
+    return {"panels": n}
+
+
+def cloud_ranking(ctx: EvalContext) -> List[Tuple[float, str, int]]:
+    """(−cloud fraction, name, index) of every file, cloudiest first, ties
+    by name then index; a file without a cloud layer has fraction 0."""
+    fracs = []
+    for i, f in enumerate(ctx.ds.files):
+        cloud = load_patch(ctx.ds.path(i), with_cloud=True).get("cloud")
+        frac = float((cloud > 0.5).mean()) if cloud is not None else 0.0
+        fracs.append((-frac, f, i))
+    return sorted(fracs)
+
+
+def run_cloudy_viz(ctx: EvalContext) -> Dict:
+    """The ``select_top_cloud`` cloudiest files, reconstructed from t=200 in
+    20 steps (``_make_recon_sampler``) on their own noise and η keys, as
+    real batches (the last one short, not padded); a panel each with GT, and
+    zoom crops per ``--zoom`` / ``--zoom_k``."""
+    cfg = ctx.cfg
+    selected = cloud_ranking(ctx)[: cfg.select_top_cloud]
+    sampler = _make_recon_sampler(ctx, 200, 20)
+    n = 0
+    for lo in range(0, len(selected), cfg.batch_size):
+        chunk = selected[lo: lo + cfg.batch_size]
+        items = [load_patch(ctx.ds.path(i)) for _, _, i in chunk]
+        idxs = [i for _, _, i in chunk]
+        cond_t, gt_t = ctx.tensors(np.stack([d["cond"] for d in items]),
+                                   np.stack([d["target"] for d in items]))
+        x0 = _np(sampler(cond_t, gt_t, ctx.per_file_noise(idxs),
+                         ctx.per_file_keys(idxs, salt=ETA_SALT)))[0]
+        for j, (_, fname, _) in enumerate(chunk):
+            V.save_panel(x0[j], items[j]["target"], items[j]["cond"],
+                         os.path.join(ctx.viz_dir, f"{n:03d}_cloudy_panel.png"),
+                         title=f"Cloudy case: {fname}", zoom=cfg.zoom, zoom_k=cfg.zoom_k)
+            n += 1
+    return {"panels": len(selected)}
 
 
 MODES = {
@@ -1051,8 +1116,8 @@ MODES = {
     "ablate": run_ablate,
     "tsweep": run_tsweep,
     "true_infer": run_true_infer,
-    "night_demo": _panel_only,
-    "cloudy_viz": _panel_only,
+    "night_demo": run_night_demo,
+    "cloudy_viz": run_cloudy_viz,
     "baseline_bicubic": partial(run_baseline, kind="bicubic"),
     "baseline_linear": partial(run_baseline, kind="linear"),
     "limitation": run_limitation,

@@ -360,3 +360,66 @@ def test_gpu_train_pool_routes_ties_as_the_cpu(cuda):
     assert torch.equal(grads[0], grads[1])
     # bf16: the same elements take the gradient (rounded to bf16)
     assert torch.equal(grads[2] != 0, grads[0] != 0) and int((grads[1] != 0).sum()) == up.numel()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("planted", [False, True])
+def test_gpu_validate_pth_parity_bf16_rule(cuda, monkeypatch, planted):
+    """The committed ε crossval net on the card's conv kernel (bf16) against
+    the f32 twin, under the card's rule: the port's f32 forward on the CPU
+    within ``max_abs < 1e-3`` of the twin (the converter) and ``rel`` within
+    twice the CPU plain path's bf16 ``rel`` (the kernel). A converter that
+    transposes the stem's kernel in space fails it."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from s1s2_torch.models import convert
+    from s1s2_torch.models.torch_twin import validate_pth_parity
+
+    if planted:
+        right = convert.torch_state_dict_to_params
+
+        def wrong(sd):
+            out = right(sd)
+            k = out["params"]["inc"]["kernel"]
+            out["params"]["inc"]["kernel"] = np.ascontiguousarray(k.transpose(1, 0, 2, 3))
+            return out
+
+        monkeypatch.setattr(convert, "torch_state_dict_to_params", wrong)
+    pth = Path(__file__).resolve().parents[1] / "examples" / "ref_crossval" / "ref_eps_model.pth"
+    rep = validate_pth_parity(str(pth), device=cuda)
+    assert rep["compute_dtype"] == "bfloat16"
+    assert rep["rule"] == "f32_max_abs < 0.001 and rel <= 2 x cpu_bf16_rel"
+    if planted:
+        assert not rep["pass"] and rep["f32_max_abs"] > 1e-3
+    else:
+        assert rep["pass"] and rep["f32_max_abs"] < 1e-3
+        assert rep["rel"] <= 2 * rep["cpu_bf16_rel"]
+
+
+@pytest.mark.gpu
+def test_gpu_night_demo_panel_at_256(cuda, tmp_path):
+    """One night_demo panel of a 256² patch through the harness on the card
+    (base 8, ``@random``): the panel's shape, its title drawn in yellow, and
+    the conv and DDIM update kernels launched."""
+    import numpy as np
+
+    from s1s2_torch.data.synthetic import make_synthetic_patches
+    from s1s2_torch.eval.harness import EvalConfig, run_mode
+    from s1s2_torch.viz.render import read_png, title_coverage
+
+    make_synthetic_patches(str(tmp_path / "p"), n=1, size=256, seed=0)
+    conv3x3_relu.launches = fused_ddim_update.launches = 0
+    out = run_mode(EvalConfig(patch_dir=str(tmp_path / "p"), out_dir=str(tmp_path / "o"),
+                              mode="night_demo", ckpt="@random", base_ch=8, ddim_steps=2,
+                              batch_size=1, save_viz_n=1, device=str(cuda)))
+    assert out == {"panels": 1}
+    assert conv3x3_relu.launches == 2 * 13 and fused_ddim_update.launches == 2
+    img = read_png(str(tmp_path / "o" / "previews" / "000_night_panel.png"))
+    assert img.shape == (512, 3 * 512, 3)
+    # the title's strongly covered pixels (coverage ≥ 240 of 255) are yellow
+    cov, dx, dy = title_coverage("Night demo: patch_000000.npz")
+    ys, xs = np.nonzero(cov >= 240)
+    px = img[5 + dy + ys, 10 + dx + xs].astype(int)
+    assert len(ys) > 20 and bool(((px[:, :2] >= 240).all(1) & (px[:, 2] <= 15)).all())

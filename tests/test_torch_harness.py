@@ -195,14 +195,10 @@ def test_random_and_msgpack_checkpoints(patches, tmp_path):
     assert ctx.model.stem_s2d == 4 and tuple(ctx.state["inc.kernel"].shape) == (3, 3, 129, 24)
 
 
-@pytest.mark.parametrize("kw", [{"mesh_data": 2},
-                                {"mode": "night_demo"}, {"mode": "night_demo", "save_viz_n": 6},
-                                {"mode": "cloudy_viz"}, {"mode": "cloudy_viz", "save_viz_n": 6},
-                                {"mode": "tsweep", "save_viz_n": 1},
-                                {"mode": "cfg_sweep", "save_viz_n": 1}])
+@pytest.mark.parametrize("kw", [{"mesh_data": 2}])
 def test_unported_options_raise(patches, tmp_path, kw):
-    """What needs ``save_panel``'s comparison panels (the two panel-only
-    modes, and tsweep's and cfg_sweep's previews) and ``--mesh_data``."""
+    """``--mesh_data`` (ROADMAP §1 item 7c). The panel modes and previews are
+    ported: ``tests/test_torch_harness_panels.py`` runs them."""
     _, tcfg = _cfgs(patches, tmp_path, **kw)
     with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7"):
         th.run_mode(tcfg)

@@ -1,6 +1,8 @@
-"""The port runs where JAX, flax, msgpack and ml_dtypes are not installed
-(the card's machine has torch, numpy and the CUDA toolkit): it imports
-nothing of them, and nothing of the JAX package s1s2."""
+"""The port runs where JAX, flax, msgpack, ml_dtypes and PIL are not
+installed (the card's machine has torch, numpy and the CUDA toolkit): it
+imports nothing of them, and nothing of the JAX package s1s2. The glyph
+atlas's generator (``s1s2_torch/viz/make_glyphs.py``) is the one module
+that imports PIL, inside a function, and no module imports it."""
 
 import ast
 import json
@@ -13,7 +15,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "flax", "msgpack", "ml_dtypes", "s1s2")
+BLOCKED = ("jax", "flax", "msgpack", "ml_dtypes", "PIL", "s1s2")
+GENERATOR = REPO / "s1s2_torch" / "viz" / "make_glyphs.py"
 PORT_FILES = sorted(p for p in (REPO / "s1s2_torch").rglob("*.py")
                     if "_build" not in p.relative_to(REPO).parts) + [REPO / "chip_smoke.py"]
 
@@ -32,10 +35,22 @@ def _imported_roots(path: Path):
             yield str(node.args[0].value).split(".")[0]
 
 
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_blocked_import_in_source(path):
     roots = set(_imported_roots(path))
-    assert not roots & set(BLOCKED), roots & set(BLOCKED)
+    allowed = {"PIL"} if path == GENERATOR else set()
+    assert not roots & (set(BLOCKED) - allowed), roots & set(BLOCKED)
+    assert "s1s2_torch.viz.make_glyphs" not in set(_imported_modules(path)) or path == GENERATOR
 
 
 def test_port_has_the_mirrored_layout():
@@ -191,6 +206,50 @@ SCRIPT = textwrap.dedent("""
         dstate, (gt8, gt8, torch.ones(gt8.shape[:3]), gt8, gt8))
     distilled = [estate.step, int(em["skipped"]), bool(torch.isfinite(dm["loss"])),
                  bool(torch.isfinite(em["loss"]))]
+    # the panels, data and checkpoint slice: both panel modes through the
+    # harness, patchify on an .npy scene, convert_ckpt, archive_ckpt, both
+    # validate_parity modes, bench_patchify and the distillation demo's strips
+    from s1s2_torch.cli import convert_ckpt, patchify, validate_parity
+    from s1s2_torch.tools import archive_ckpt, bench_patchify, demo_distill_viz
+    with tempfile.TemporaryDirectory() as td, contextlib.redirect_stdout(io.StringIO()):
+        make_synthetic_patches(td + "/p", n=3, size=16, seed=0, with_cloud=True)
+        panels = {{m: run_mode(EvalConfig(
+            patch_dir=td + "/p", out_dir=td + "/" + m, mode=m, base_ch=8, ckpt="@random", T=50,
+            t_start=40, ddim_steps=2, batch_size=2, select_top_cloud=2, save_viz_n=1,
+            device="cpu"))["panels"] for m in ("night_demo", "cloudy_viz")}}
+        rng = np.random.default_rng(0)
+        os.makedirs(td + "/raw/s.data")
+        for name in ("B2", "B3", "B4", "B8", "Sigma0_HH_db_m", "Sigma0_HV_db_m",
+                     "projectedLocalIncidenceAngle_m", "elevation_ref_egm2008",
+                     "collocationFlags"):
+            np.save(f"{{td}}/raw/s.data/{{name}}.img.npy",
+                    rng.uniform(0.1, 0.9, (48, 48)).astype(np.float32))
+        patches = patchify.main(["--base-dir", td + "/raw", "--output-dir", td + "/pp",
+                                 "--patch-size", "32", "--stride", "16"])["total_patches"]
+        pth = "examples/ref_crossval/ref_eps_model.pth"
+        converted = convert_ckpt.main(["--pth", pth, "--out", td + "/c.msgpack"])["base_ch"]
+        archive_ckpt.main([td + "/c.msgpack", td + "/a.msgpack"])
+        archived = str(load_params(td + "/a.msgpack")["inc"]["kernel"].dtype)
+        fwd = validate_parity.main(["--pth", pth, "--device", "cpu", "--image_size", "16"])
+        with open(td + "/exp.json", "w") as f:
+            json.dump({{"ddim_eps": {{"config": {{"t_start": 10, "ddim_steps": 2}}}},
+                       "sweep_eps": {{"config": {{"t_start_grid": [10], "ddim_steps_grid": [2]}},
+                                     "expect": {{"10,2": 0.1}}}},
+                       "true_infer_eps": {{"config": {{"t_start": 19, "ddim_steps": 2,
+                                                      "n_seeds": 1}}}}}}, f)
+        full = validate_parity.main(["--full", "--patch_dir", td + "/p", "--out_dir", td + "/par",
+                                     "--eps_ckpt", pth, "--base_ch", "16", "--T", "20",
+                                     "--batch_size", "2", "--expected", td + "/exp.json",
+                                     "--device", "cpu"])["tables_ran"]
+        windows = bench_patchify.run(288)["windows"]
+        os.makedirs(td + "/w")
+        os.symlink(td + "/p", td + "/w/patches")
+        demo = demo_distill_viz.main([
+            "--workdir", td + "/w", "--k", "2", "--out", td + "/demo", "--device", "cpu",
+            "--teacher", str(CKPT_DIR / "distill_eps_teacher.bf16.msgpack"),
+            "--student", str(CKPT_DIR / "distill_eps_student1.bf16.msgpack")])
+        sliced = [panels, patches, converted, archived, fwd["pass"], full, windows,
+                  len(demo), sorted(os.listdir(td + "/demo"))]
     loaded = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
     print(json.dumps({{"modules": mods, "shape": list(y.shape),
                       "up_convs": sorted(up.up8), "up_forward": list(y8.shape),
@@ -198,7 +257,7 @@ SCRIPT = textwrap.dedent("""
                       "bench_int8_paths": [r["path"] for r in b8["rows"]], "rc_train": rc_train,
                       "rc_distill": rc_distill, "step": [st.step, int(m["skipped"]),
                                                          bool(torch.isfinite(m["loss"]))],
-                      "trained": trained, "distilled": distilled,
+                      "trained": trained, "distilled": distilled, "sliced": sliced,
                       "finite": bool(torch.isfinite(y).all()), "loaded": loaded,
                       "dpm_shape": r["shape"], "dpm_finite": r["finite"],
                       "cfg_checked": cfg["quality_checked"] in (True, False),
@@ -232,12 +291,21 @@ def test_port_runs_with_jax_flax_msgpack_ml_dtypes_and_s1s2_blocked():
             "s1s2_torch.utils.profiling", "s1s2_torch.train.distill", "s1s2_torch.cli.distill",
             "s1s2_torch.cli.make_synthetic", "s1s2_torch.tools.bench_distill",
             "s1s2_torch.tools.score_distill_full",
-            "s1s2_torch.tools.score_width_holdout"} <= set(out["modules"])
+            "s1s2_torch.tools.score_width_holdout", "s1s2_torch.viz._glyphs",
+            "s1s2_torch.viz.make_glyphs", "s1s2_torch.models.torch_twin",
+            "s1s2_torch.eval.parity", "s1s2_torch.cli.validate_parity",
+            "s1s2_torch.cli.convert_ckpt", "s1s2_torch.cli.patchify",
+            "s1s2_torch.tools.archive_ckpt", "s1s2_torch.tools.bench_patchify",
+            "s1s2_torch.tools.demo_distill_viz"} <= set(out["modules"])
     assert out["up_convs"] == ["up1", "up2", "up3"] and out["up_forward"] == [2, 16, 16, 4]
     assert out["scene_shape"] == [4, 40, 40] and out["served"] == [3, 16, 16, 4]
     assert out["bench_int8_paths"] == ["bf16", "int8", "int8_quant_up"]
     assert out["rc_train"] == 0 and out["rc_distill"] == 0
     assert out["distilled"] == [2, 0, True, True]
+    assert out["sliced"] == [{"night_demo": 1, "cloudy_viz": 2}, 4, 16, "torch.bfloat16", True,
+                             ["ddim_eps", "sweep_eps", "true_infer_eps"], 4, 2,
+                             ["patch00_gt_teacher20_student1.png",
+                              "patch01_gt_teacher20_student1.png", "summary.json"]]
     assert out["step"] == [1, 0, True]
     assert out["trained"] == [4, 0, ["m.jsonl", "m.msgpack", "m_best.msgpack",
                                      "m_best.msgpack.loss.json", "m_last.msgpack", "p", "st"],
