@@ -8,15 +8,23 @@ Phases, each printing its own seconds:
 1. Device: a CUDA card must be present (else exit 1, no result); prints
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
 2. Build: compiles ``s1s2_torch/ops/csrc/*.cu`` with nvcc and prints each
-   conv, matmul and halo kernel's registers and shared memory (ptxas).
-   ``cuobjdump -sass`` of the built library must show (``sass_rules``):
-   ``HMMA`` in every ``conv3x3_bf16_kernel`` and ``IMMA`` in
-   ``conv3x3_int8_kernel``, no ``IDP4A`` or ``FFMA`` there; ``HGMMA`` in the
-   bf16 ``matmul_kernel``s and ``IGMMA`` in the int8 one, each with TMA
-   loads (``UTMALDG``) and no ``HMMA``/``IMMA``/``LDGSTS``; bulk loads and
-   bulk stores (``UBLKCP.S.G``, ``UBLKCP.G.S``) and no ``LDG``/``STG`` in
-   ``halo_rows_x2_kernel``.
-3. Kernels against their plain PyTorch versions at the main path's shapes
+   conv, matmul and halo kernel's registers, shared memory and spills
+   (ptxas; spills must be 0 in the conv kernels). ``cuobjdump -sass`` of the
+   built library must show (``sass_rules``): ``HGMMA`` in every
+   ``conv3x3_bf16_kernel`` and the bf16 ``matmul_kernel``s, ``IGMMA`` in
+   every ``conv3x3_int8_kernel`` and the int8 ``matmul_kernel``, each with
+   TMA loads (``UTMALDG``) and no ``HMMA``/``IMMA``/``LDGSTS`` (and no
+   ``IDP4A`` or ``FFMA`` in the convs); bulk loads and bulk stores
+   (``UBLKCP.S.G``, ``UBLKCP.G.S``) and no ``LDG``/``STG`` in
+   ``halo_rows_x2_kernel``. The conv's launch plan as the C entry computes
+   it must equal its Python mirror (``ops/conv3x3.conv_plan``) at every
+   conv of every model (``conv_plan_mismatches``).
+3. First the conv kernel's layout probe (``layout_probe``: one tap and one
+   input channel lit at a time, in both modes, at the cases of
+   ``PROBE_CASES``; it names the tap and channel a wrong swizzle or
+   descriptor reads) and both modes at the awkward shapes
+   (``AWKWARD_SHAPES``: Cin 129, 33, 12, 9, Cout 12 and 24, 8² and 20², B=1).
+   Then the kernels against their plain PyTorch versions at the main path's shapes
    (the 24x4 student's 13 convs, B=8; the DDIM update at (128,256,256,4)):
    conv bf16 within 1 bf16 ulp plus the f32 accumulation-order bound,
    conv int8 bit-equal (and its quantizer on every finite bf16 value at
@@ -40,8 +48,8 @@ Phases, each printing its own seconds:
    of the ladder's base-64, 48 and 32 students, inc to conv1.conv2.
 3e. The kernels at the crossval nets' shapes (the base-16 ``.pth`` nets of
    ``examples/ref_crossval`` at 32², their own weights): the conv in both
-   modes from 32×32 down to 8×8 (narrower than its 8×16-pixel tile) and
-   Cout 16 and 32 (below its 64-channel tile), at B=8 and 2 (ε net) and 4
+   modes from 32×32 down to 8×8 (narrower than its 16×16-pixel tile) and
+   Cout 16 and 32, at B=8 and 2 (ε net) and 4
    (v net), and the DDIM update on a padded batch, with phase 3's
    tolerances.
 3f. The int8 up-convs of ``quant_up`` (``ops/pixel_shuffle.
@@ -202,7 +210,9 @@ Phases, each printing its own seconds:
    files: each row within 0.005 of the committed ``distill_demo/summary.json``
    (4m's bound on the committed score replays).
 5. Timing at B=128 with CUDA events: each kernel at each path shape beside
-   its plain version, ``F.conv2d`` (bf16 mode only) and its bound.
+   its plain version, ``F.conv2d`` (bf16 mode only) and its bound (the
+   convs through ``tools/bench_conv.time_set``, the conv timing tool's own
+   loop and inputs).
 5b. Timing at the base-96 shapes (bf16 at line 1's B=128, int8 at line 2's
    B=64: ``bench.LINE1_BATCH``, ``bench.LINE2_BATCH``) beside ``F.conv2d``
    and the bound, of the per-channel int8 mode at the CFG net's 10 int8
@@ -237,22 +247,24 @@ import time
 import urllib.request
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-# dense tensor-core peaks; f32 outside the tensor cores
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# the conv's own timing tool: its input builders and per-shape loop, and the
+# timing and bound helpers (the card's published peaks, the conv shapes of a
+# model, CUDA-event loops)
+from s1s2_torch.tools import bench_conv
+from s1s2_torch.tools.bench_conv import (HBM_BYTES_PER_S, PEAK_OPS_PER_S, bound_ms,
+                                         card_line, conv_shapes, time_ms)
+
 EVIDENCE_MAE, TEACHER_ANCHOR = 0.32764, 0.44074
 SIZE, BATCH, CHECK_BATCH = 256, 128, 8  # patch size, timing batch, check batch
 STEM = 4  # the 24x4 student's space-to-depth factor: body at SIZE / 4
-LEVEL = {"inc": 0, "down1": 0, "down2": 1, "down3": 2, "conv3": 2, "conv2": 1,
-         "conv1": 0}
 SMOKE_LINE1_BATCH = 4  # line 1 here; line 2 runs at the bench's own batch
 MATMUL_SHAPES = ((512, 512, 512), (8192, 2048, 2048))  # (M, K, N)
 HALO_CASES = ((256, 128, 128, 32), (250, 128, 128, 32), (37, 5, 4, 7),  # (H, W, C, TH)
               (1026, 256, 128, 32))
 RUNGS = (("16x2", 0.33557), ("12", 0.34379))  # committed evidence MAEs
 LADDER_SHAPES = ("64", "48", "32")  # the ladder's full-resolution students checked in 3d
-CFG_BF16_BLOCKS = ("conv1",)  # the quality-equal CFG recipe's bf16 block
-CFG_CHECK_BATCH = 64  # the CFG sampler's forward: 2 x 32 stacked rows
+CFG_BF16_BLOCKS = bench_conv.CFG_BF16_BLOCKS  # the quality-equal CFG recipe's bf16 block
+CFG_CHECK_BATCH = bench_conv.CFG_BATCH  # the CFG sampler's forward: 2 x 32 stacked rows
 MAE_SLACK = 0.02  # bench.py's rung slack
 # 3e: (net, batch) of the crossval nets' shape checks
 CROSSVAL_CHECKS = (("eps", 8), ("eps", 2), ("v", 4))
@@ -326,34 +338,13 @@ class Phase:
         return False
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def conv_shapes(state, body, bf16_blocks=()):
-    """[(name, H, Cin, Cout, mode)] of a model's 13 3x3 convs; ``inc`` and
-    the blocks of ``bf16_blocks`` run in bf16, the rest in int8."""
-    out = []
-    for key, k in state.items():
-        if not key.endswith(".kernel") or k.shape[0] != 3:
-            continue
-        name = key[:-len(".kernel")]
-        blk = name.split(".")[0]
-        out.append((name, body >> LEVEL[blk], k.shape[2], k.shape[3],
-                    "bf16" if name == "inc" or blk in bf16_blocks else "int8"))
-    return out
-
-
 SASS_KERNELS = ("conv3x3", "quantize_pad", "matmul_kernel", "transpose_i8", "halo_rows_x2")
 SASS_OPS = ("HMMA", "IMMA", "HGMMA", "IGMMA", "FFMA", "IDP4A", "LDSM", "LDGSTS", "UTMALDG",
             "UBLKCP.S.G", "UBLKCP.G.S", "LDG", "STG")
 # (kernel name contains, SASS ops that must occur, ops that must not)
 SASS_RULES = (
-    ("conv3x3_bf16_kernel", ("HMMA",), ("IDP4A", "FFMA")),
-    ("conv3x3_int8_kernel", ("IMMA",), ("IDP4A", "FFMA")),
+    ("conv3x3_bf16_kernel", ("HGMMA", "UTMALDG"), ("HMMA", "IMMA", "LDGSTS", "IDP4A", "FFMA")),
+    ("conv3x3_int8_kernel", ("IGMMA", "UTMALDG"), ("HMMA", "IMMA", "LDGSTS", "IDP4A", "FFMA")),
     ("matmul_kernelILi0E", ("HGMMA", "UTMALDG"), ("HMMA", "IMMA", "LDGSTS")),
     ("matmul_kernelILi1E", ("HGMMA", "UTMALDG"), ("HMMA", "IMMA", "LDGSTS")),
     ("matmul_kernelILi2E", ("IGMMA", "UTMALDG"), ("HMMA", "IMMA", "LDGSTS")),
@@ -379,8 +370,8 @@ def sass_counts(text):
 def sass_rules(counts):
     """Raises unless every rule of ``SASS_RULES`` names at least one kernel,
     and each kernel it names has every op it needs and none it forbids: the
-    convs on ``mma.sync``, the matmul on ``wgmma`` fed by TMA, the halo load
-    on bulk copies. A kernel that fell back to older instructions fails."""
+    convs and the matmul on ``wgmma`` fed by TMA, the halo load on bulk
+    copies. A kernel that fell back to older instructions fails."""
     for key, need, forbid in SASS_RULES:
         names = [n for n in counts if key in n]
         if not names:
@@ -406,34 +397,24 @@ def sass_check(lib):
     return counts
 
 
-def bound_ms(nbytes, ops, kind):
-    """(ms, "bytes" or "operations"): the larger of the two least times."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[kind]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def ptxas_report(lines):
+    """Prints the ptxas lines of the kernels ``SASS_KERNELS`` names (entry,
+    stack frame and spills, registers and shared memory) and every
+    advisory; → {kernel: bytes of spill stores}."""
+    import re
 
-
-def conv_bound_ms(mode, B, H, Cin, Cout, per_channel=False):
-    """Least time for one conv: each input read once (with the Cin f32
-    scales of the per-channel int8 mode), each output written once, against
-    the ops at the tensor-core peak of the mode's type."""
-    wbytes = 2 if mode == "bf16" else 1
-    nbytes = (B * H * H * Cin * 2 + 9 * Cin * Cout * wbytes + Cout * 4 * 2
-              + B * H * H * Cout * 2 + (Cin * 4 if per_channel else 0))
-    return bound_ms(nbytes, 2 * 9 * B * H * H * Cin * Cout, mode)
-
-
-def time_ms(torch, fn, args_list, reps):
-    """Mean ms per call over ``reps`` calls, cycling through the inputs."""
-    fn(*args_list[0])
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(reps):
-        fn(*args_list[i % len(args_list)])
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    cur, spills = "", {}
+    for line in lines:
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            cur = m.group(1)
+        ours = any(k in cur for k in SASS_KERNELS)
+        if ours or "(C7" in line:
+            print(f"ptxas: {line}", flush=True)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and ours:
+            spills[cur] = spills.get(cur, 0) + int(m.group(1))
+    return spills
 
 
 def matmul_bound_ms(M, K, N, mode):
@@ -447,6 +428,26 @@ def halo_bound_ms(H, W, C):
     return bound_ms(4 * H * W * C + 4 * (H - 2) * W * C, (H - 2) * W * C, "f32")
 
 
+def conv_plan_mismatches():
+    """The conv kernel's launch plan as the built C entry computes it
+    (``kernel_plan``) against its Python mirror (``conv_plan``), at every
+    conv of every model the repo runs (``bench_conv.MODELS``), in bf16 and,
+    but for the stem, in int8, with the channels padded as each mode reads
+    them: → (cases checked, [(case, C plan, Python plan)] that differ)."""
+    from s1s2_torch.ops.conv3x3 import K_MULT, conv_plan, kernel_plan
+
+    n, bad = 0, []
+    for label, *arch in bench_conv.MODELS:
+        for name, H, cin, cout, _ in bench_conv.model_convs(*arch):
+            for mode in ("bf16",) if name == "inc" else ("bf16", "int8"):
+                cs = -(-cin // K_MULT[mode]) * K_MULT[mode]
+                c, py = kernel_plan(mode, cs, cout), conv_plan(mode, cs, cout)
+                n += 1
+                if any(c[k] != py[k] for k in c):
+                    bad.append((f"{label} {name} {mode} {cs}->{cout}", c, py))
+    return n, bad
+
+
 def bf16_ulp(torch, v):
     """One bf16 ulp of |v| (0 where v is 0)."""
     _, e = torch.frexp(v.float().abs())
@@ -456,8 +457,10 @@ def bf16_ulp(torch, v):
 
 def bf16_tolerance(torch, F, x, w, b, ref, Cin):
     """1 bf16 ulp of the larger value plus twice the f32 accumulation-order
-    bound n·2^-24·Σ|terms| (n = 9·Cin + 1), per element."""
+    bound n·2^-24·Σ|terms| (n = 9·Cin + 1), per element. An input padded
+    past w's Cin (a stem's) counts its first Cin channels."""
     cudnn = torch.backends.cudnn
+    x = x[..., :w.shape[2]]
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                      deterministic=cudnn.deterministic, allow_tf32=False):
         s = F.conv2d(x.float().abs().permute(0, 3, 1, 2),
@@ -466,17 +469,85 @@ def bf16_tolerance(torch, F, x, w, b, ref, Cin):
     return bf16_ulp(torch, ref) + 2 * (9 * Cin + 1) * 2.0 ** -24 * s
 
 
+# the layout probe's cases (mode, Cin, Cout) and the input channels lit in
+# each: every 16-byte piece of the chunk rows (128 bytes, and the 32- and
+# 64-byte chunks of narrow channel counts), the chunk edges and the channel
+# tail; the awkward shapes' (Cin, Cout, side) of 3 and the GPU tests
+PROBE_CASES = (("bf16", 136, 24, (0, 7, 8, 15, 16, 31, 40, 63, 64, 100, 127, 128, 135)),
+               ("bf16", 72, 192, (0, 9, 23, 50, 63, 64, 71)),
+               ("bf16", 16, 96, (0, 7, 8, 15)),
+               ("bf16", 24, 48, (0, 7, 8, 15, 16, 23)),
+               ("int8", 160, 24, (0, 1, 16, 31, 32, 63, 64, 95, 112, 127, 128, 159)),
+               ("int8", 96, 96, (0, 17, 47, 48, 80, 95)),
+               ("int8", 32, 24, (0, 15, 16, 31)),
+               ("int8", 64, 48, (0, 15, 16, 31, 32, 47, 48, 63)))
+AWKWARD_SHAPES = tuple((ci, co, hw) for ci in (129, 33, 12, 9) for co in (12, 24)
+                       for hw in (8, 20))
+
+
+def layout_probe(torch, mode, Cin, Cout, channels, device, side=20, batch=2):
+    """The conv kernel with one tap and one input channel lit at a time (the
+    weight zero elsewhere; output channel co weighted 2^(co % 4)) on
+    activations whose values name their pixel and channel (small integers,
+    exact in bf16 and int8), against the plain version: every product is
+    exact and alone in its sum, so both modes must agree bit for bit. →
+    [(tap, channel, what the kernel read)] of the cases that disagree; for
+    each, the (tap, channel) of the input whose values the kernel's output
+    shows, or "no single input"."""
+    from s1s2_torch.ops.conv3x3 import (conv3x3_relu, conv3x3_relu_int8,
+                                        conv3x3_relu_int8_plain, conv3x3_relu_plain)
+
+    B, H = batch, side
+    ar = lambda n: torch.arange(n, device=device)  # noqa: E731
+    xv = ((ar(B)[:, None, None, None] * 11 + ar(H)[None, :, None, None] * 5
+           + ar(H)[None, None, :, None] * 3 + ar(Cin)[None, None, None, :] * 7) % 127 + 1)
+    x = xv.to(torch.bfloat16).contiguous()
+    scale = (2.0 ** (ar(Cout) % 4)).float()
+    pad = torch.nn.functional.pad(xv.float(), (0, 0, 1, 1, 1, 1))
+    shifted = [pad[:, ky:ky + H, kx:kx + H] for ky in range(3) for kx in range(3)]
+    b = torch.zeros(Cout, device=device)
+    bad = []
+    for tap in range(9):
+        for ci in channels:
+            w = torch.zeros((3, 3, Cin, Cout), device=device)
+            w[tap // 3, tap % 3, ci] = scale
+            if mode == "bf16":
+                w = w.to(torch.bfloat16)
+                got, ref = conv3x3_relu(x, w, b, False), conv3x3_relu_plain(x, w, b, False)
+            else:
+                w = w.to(torch.int8)
+                one = torch.ones(Cout, device=device)
+                got = conv3x3_relu_int8(x, w, 1.0, one, b, False)
+                ref = conv3x3_relu_int8_plain(x, w, 1.0, one, b, False)
+            if torch.equal(got, ref):
+                continue
+            read = got.float() / scale  # what the kernel multiplied by the lit weight
+            hit = "no single input"
+            for t2 in range(9):
+                same = (shifted[t2][..., :, None] == read[..., None, :]).all(dim=(0, 1, 2))
+                found = same.nonzero()
+                if len(found):
+                    hit = f"tap {t2} channel {int(found[0, 0])} (output channel {int(found[0, 1])})"
+                    break
+            bad.append((tap, ci, hit))
+    return bad
+
+
 def record_ops(quant, qp, x, t):
     """ε̂ of ``quant.quant_apply(qp, x, t)`` and [(op, args, output)] of every
-    op of ``QUANT_OPS`` it called, in call order; the quant module is left as
-    it was found."""
+    op of ``QUANT_OPS`` it called, in call order (keyword arguments among
+    the positional ones); the quant module is left as it was found."""
+    import inspect
+
     calls = []
     saved = {name: getattr(quant, name) for name in QUANT_OPS}
 
     def wrap(name):
-        def fn(*args):
-            out = saved[name](*args)
-            calls.append((name, args, out))
+        def fn(*args, **kw):
+            out = saved[name](*args, **kw)
+            bound = inspect.signature(saved[name]).bind(*args, **kw)
+            bound.apply_defaults()
+            calls.append((name, bound.args, out))
             return out
         return fn
 
@@ -509,10 +580,10 @@ def check_ops(torch, F, quant, what, calls):
             ok = bool(torch.equal(out, ref))
             ratio = 0.0 if ok else float("inf")
         else:
-            x, w, b = args
+            x, w, b = args[:3]
             if name == "conv3x3_relu":
                 tol = bf16_tolerance(torch, F, x, w, b, torch.maximum(out.abs(), ref.abs()),
-                                     x.shape[-1])
+                                     w.shape[2])
             else:
                 zero = torch.zeros_like(b, dtype=torch.float32)
                 op = getattr(quant, name)
@@ -1353,7 +1424,7 @@ def main():
     from s1s2_torch.models.weights import params_from_numpy, spec_arch
     from s1s2_torch.ops import _build
     from s1s2_torch.ops.conv3x3 import (conv3x3_relu, conv3x3_relu_int8,
-                                        conv3x3_relu_int8_plain, conv3x3_relu_plain)
+                                        conv3x3_relu_int8_plain)
     from s1s2_torch.ops.fused_elementwise import (ddim_coefs, ddim_update_plain,
                                                   fused_ddim_update)
     from s1s2_torch.ops.halo import halo_rows_x2, halo_rows_x2_plain
@@ -1392,14 +1463,15 @@ def main():
         info = _build.kernels().info
         print(f"built {info.path.name} compiled={info.compiled} in {info.seconds:.2f} s",
               flush=True)
-        prev = ""
-        for line in info.ptxas:  # each kernel's "Compiling entry" line, then its usage
-            if any(k in line for k in SASS_KERNELS) or (
-                    "Used" in line and any(k in prev for k in SASS_KERNELS)):
-                print(f"ptxas: {line}", flush=True)
-            prev = line
+        spills = ptxas_report(info.ptxas)
+        require(not any(v for k, v in spills.items() if "conv3x3" in k),
+                f"the conv kernels spill: {spills}")
         for name, c in sass_check(info.path).items():
             print(f"sass {name[:80]}: {c}", flush=True)
+        n_plans, bad = conv_plan_mismatches()
+        print(f"conv plan: the C entry and ops/conv3x3.conv_plan agree at {n_plans - len(bad)} "
+              f"of {n_plans} (conv, mode) cases", flush=True)
+        require(not bad, f"the conv plan's Python mirror has drifted from the C entry: {bad[:4]}")
 
     def student(spec):
         """A distilled student's checkpoint on the card."""
@@ -1417,34 +1489,19 @@ def main():
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
-    def make_inputs(st, w8d, rand_bias):
-        def conv_inputs(name, B, H, Cin, Cout, mode):
-            x = torch.randn((B, H, H, Cin), generator=gen, device=dev).abs_().to(torch.bfloat16)
-            b = (torch.randn((Cout,), generator=gen, device=dev) * 0.1 if rand_bias
-                 else st[f"{name}.bias"].contiguous())
-            if mode == "bf16":
-                return x, st[f"{name}.kernel"].to(torch.bfloat16).contiguous(), b, None
-            sx = float(x.float().abs().amax()) / 127.0
-            deq = (torch.tensor(sx, dtype=torch.float32, device=dev) * w8d[name][1]).contiguous()
-            return x, w8d[name][0], b, (sx, deq)
-        return conv_inputs
-
-    conv_inputs = make_inputs(state, w8, False)
-    conv_inputs96 = make_inputs(state96, w8_96, True)
+    conv_inputs = bench_conv.conv_inputs(state, w8, gen)
+    conv_inputs96 = bench_conv.conv_inputs(state96, w8_96, gen, rand_bias=True)
 
     def check_conv(inputs, name, B, H, Cin, Cout, m, label=""):
         """One conv, kernel against plain version; → (key, max abs err)."""
         x, w, b, q = inputs(name, B, H, Cin, Cout, m)
+        got, ref = bench_conv.conv_call(x, w, b, q, Cin), bench_conv.plain_call(x, w, b, q, Cin)
         if m == "bf16":
-            got = conv3x3_relu(x, w, b)
-            ref = conv3x3_relu_plain(x, w, b)
             tol = bf16_tolerance(torch, F, x, w, b, torch.maximum(got.abs(), ref.abs()), Cin)
             d = (got.float() - ref.float()).abs()
             ok = bool((d <= tol).all())
             key = "conv3x3_relu"
         else:
-            got = conv3x3_relu_int8(x, w, q[0], q[1], b)
-            ref = conv3x3_relu_int8_plain(x, w, q[0], q[1], b)
             d = (got.float() - ref.float()).abs()
             ok = bool(torch.equal(got, ref))
             key = "conv3x3_relu_int8"
@@ -1455,37 +1512,33 @@ def main():
         require(ok, f"conv3x3 {m} kernel disagrees at {label}{name} {H}x{H} {Cin}->{Cout}")
         return key, e
 
-    def time_conv(inputs, name, B, H, Cin, Cout, m, reps, plain_reps, note="",
-                  per_channel=False):
-        """One conv at batch B: → (kernel ms, plain ms, F.conv2d ms or None,
-        bound ms, bound_by)."""
-        ins = [inputs(name, B, H, Cin, Cout, m) for _ in range(2)]
-        if m == "bf16":
-            kfn = lambda x, w, b, q: conv3x3_relu(x, w, b)  # noqa: E731
-            pfn = lambda x, w, b, q: conv3x3_relu_plain(x, w, b)  # noqa: E731
-            wl = ins[0][1].permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
-            bl = ins[0][2].to(torch.bfloat16)
-
-            def lfn(x, w, b, q, wl=wl, bl=bl):
-                return torch.relu_(F.conv2d(x.permute(0, 3, 1, 2), wl, bl, padding=1))
-            lib_ms = time_ms(torch, lfn, ins, reps)
-        else:
-            kfn = lambda x, w, b, q: conv3x3_relu_int8(x, w, q[0], q[1], b)  # noqa: E731
-            pfn = lambda x, w, b, q: conv3x3_relu_int8_plain(x, w, q[0], q[1], b)  # noqa: E731
-            lib_ms = None
-        ms = time_ms(torch, kfn, ins, reps)
-        plain_ms = time_ms(torch, pfn, ins, plain_reps)
-        bound, by = conv_bound_ms(m, B, H, Cin, Cout, per_channel)
-        print(f"time {m}{' per-channel' if per_channel else ''} {name} {H}x{H} {Cin}->{Cout} B={B}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, F.conv2d {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, "
-              f"bound {bound:.4f} ms ({by}){note}", flush=True)
-        del ins
-        torch.cuda.empty_cache()
-        return ms, plain_ms, lib_ms, bound, by
-
     err = {k.__name__: 0.0 for k in kernels if k is not matmul}
     err.update({"matmul bf16": 0.0, "matmul int8": 0.0})
+
+    def awkward_inputs(name, B, H, Cin, Cout, mode):
+        """Random operands at an awkward shape: |N(0,1)| activations, weights
+        N(0, 0.1²) (int8: per-Co as quantize_weights makes them), bias N(0,1)."""
+        x = torch.randn((B, H, H, Cin), generator=gen, device=dev).abs_().to(torch.bfloat16)
+        w = 0.1 * torch.randn((3, 3, Cin, Cout), generator=gen, device=dev)
+        b = torch.randn((Cout,), generator=gen, device=dev)
+        if mode == "bf16":
+            return x, w.to(torch.bfloat16), b, None
+        sw = w.abs().amax(dim=(0, 1, 2)).clamp_min(1e-12) / 127.0
+        w8 = torch.round(w / sw).clamp(-127, 127).to(torch.int8)
+        sx = float(x.float().abs().amax()) / 127.0
+        return x, w8, b, (sx, (torch.tensor(sx, device=dev) * sw).contiguous())
+
     with Phase("kernels vs plain versions"):
+        for mode, Cin, Cout, chans in PROBE_CASES:
+            bad = layout_probe(torch, mode, Cin, Cout, chans, dev)
+            print(f"check layout probe {mode} {Cin}->{Cout}: {9 * len(chans)} (tap, channel) "
+                  f"cases, " + ("clean" if not bad else f"{len(bad)} wrong, (tap, channel, "
+                                f"what the kernel read): {bad[:12]}"), flush=True)
+            require(not bad, f"the conv kernel's layout probe failed ({mode} {Cin}->{Cout})")
+        for Cin, Cout, hw in AWKWARD_SHAPES:
+            for m in ("bf16", "int8"):
+                key, e = check_conv(awkward_inputs, "awkward", 1, hw, Cin, Cout, m)
+                err[key] = max(err[key], e)
         for name, H, Cin, Cout, mode in shapes:
             for m in ("bf16", "int8") if mode == "int8" else ("bf16",):
                 key, e = check_conv(conv_inputs, name, CHECK_BATCH, H, Cin, Cout, m)
@@ -1561,7 +1614,7 @@ def main():
         paths = [("base-96 ", conv_inputs96, shapes96)]
         for spec, _ in RUNGS:
             st = student(spec)
-            paths.append((f"{spec} ", make_inputs(st, quantize_weights(st)[0], False),
+            paths.append((f"{spec} ", bench_conv.conv_inputs(st, quantize_weights(st)[0], gen),
                            conv_shapes(st, body=SIZE // spec_arch(spec)[1])))
         for label, inputs, shp in paths:
             for name, H, Cin, Cout, mode in shp:
@@ -1580,15 +1633,7 @@ def main():
     cfg_qp = cfg_calls["qp"]
     cfg_shapes = conv_shapes(cfg_state, body=SIZE, bf16_blocks=CFG_BF16_BLOCKS)
 
-    def cfg_inputs(name, B, H, Cin, Cout, mode):
-        """Per-channel int8 inputs at a CFG conv: the net's folded int8 weights,
-        deq = sw and scales; activations with each channel's range at 0.3-1.2x
-        its calibrated one (some clip at 127)."""
-        sx = cfg_qp.sx[name]
-        spread = 0.3 + 0.9 * torch.rand((Cin,), generator=gen, device=dev)
-        x = ((2 * torch.rand((B, H, H, Cin), generator=gen, device=dev) - 1)
-             * (127 * sx * spread)).to(torch.bfloat16)
-        return x, cfg_qp.w8[name][0], cfg_qp.bias[name], (sx, cfg_qp.deq[name])
+    cfg_inputs = bench_conv.cfg_conv_inputs(cfg_qp, gen)
 
     with Phase("conv kernel: per-channel int8 at the CFG shapes, both modes at the ladder's"):
         err["conv3x3_relu_int8 per_channel"] = 0.0
@@ -1611,7 +1656,7 @@ def main():
               "scales near k + 1/2, bit-equal", flush=True)
         for spec in LADDER_SHAPES:
             st = student(spec)
-            inputs = make_inputs(st, quantize_weights(st)[0], False)
+            inputs = bench_conv.conv_inputs(st, quantize_weights(st)[0], gen)
             for name, H, Cin, Cout, mode in conv_shapes(st, body=SIZE):
                 B = 1 if H == SIZE else 2
                 for m in ("bf16", "int8") if mode == "int8" else ("bf16",):
@@ -1624,7 +1669,7 @@ def main():
         for net, B in CROSSVAL_CHECKS:
             st = {k: v.to(dev) for k, v in params_from_numpy(load_params(
                 str(ref_crossval.REF_DIR / f"ref_{net}_model.pth"))).items()}
-            inputs = make_inputs(st, quantize_weights(st)[0], False)
+            inputs = bench_conv.conv_inputs(st, quantize_weights(st)[0], gen)
             for name, H, Cin, Cout, mode in conv_shapes(st, body=ref_crossval.SIZE):
                 for m in ("bf16", "int8") if mode == "int8" else ("bf16",):
                     key, e = check_conv(inputs, name, B, H, Cin, Cout, m, f"crossval {net} ")
@@ -2238,26 +2283,15 @@ def main():
     rows = []
     with Phase(f"timing at B={BATCH} on {card}"):
         B = BATCH
-        # sums over the launches of one int8 forward (bf16 mode: inc only)
-        totals = {k: dict(ms=0.0, plain=0.0, bound=0.0, library=0.0, bytes=0.0, operations=0.0)
-                  for k in ("conv3x3_relu", "conv3x3_relu_int8")}
-        for name, H, Cin, Cout, mode in shapes:
-            for m in ("bf16", "int8") if mode == "int8" else ("bf16",):
-                on_path = (m == mode)  # launched by the timed int8 forward
-                ms, plain_ms, lib_ms, bound, by = time_conv(
-                    conv_inputs, name, B, H, Cin, Cout, m, 20, 2,
-                    "" if on_path else " [calibration mode]")
-                if on_path:
-                    t = totals["conv3x3_relu" if m == "bf16" else "conv3x3_relu_int8"]
-                    t["ms"] += ms
-                    t["plain"] += plain_ms
-                    t["bound"] += bound
-                    t["library"] += lib_ms or 0.0
-                    t[by] += bound
+        # sums over the launches of one int8 forward (bf16 mode: inc only); the
+        # int8 convs also in bf16, their calibration pass, printed apart
+        sums = bench_conv.time_set("24x4", conv_inputs, shapes, {"bf16": B, "int8": B}, 20, 2,
+                                   calibration=True)
+        totals = {"conv3x3_relu": sums["bf16"], "conv3x3_relu_int8": sums["int8"]}
         xd = [torch.randn((B, SIZE, SIZE, 4), generator=gen, device=dev) for _ in range(3)]
         ddim_args = [(xd[i], xd[(i + 1) % 3], s1m, sabg, sabn, s1mn) for i in range(3)]
-        d_ms = time_ms(torch, fused_ddim_update, ddim_args, 50)
-        d_plain = time_ms(torch, ddim_update_plain, ddim_args, 20)
+        d_ms = time_ms(fused_ddim_update, ddim_args, 50)
+        d_plain = time_ms(ddim_update_plain, ddim_args, 20)
         d_bound = 1e3 * 16 * xd[0].numel() / HBM_BYTES_PER_S
         print(f"time ddim_update {tuple(xd[0].shape)}: kernel {d_ms:.4f} ms, plain {d_plain:.4f} ms, "
               f"bound {d_bound:.4f} ms (bytes)", flush=True)
@@ -2265,36 +2299,14 @@ def main():
         torch.cuda.empty_cache()
 
     with Phase(f"timing at the base-96 shapes and the probe's on {card}"):
-        sums = {m: dict(ms=0.0, plain=0.0, library=0.0, bound=0.0) for m in ("bf16", "int8")}
-        for name, H, Cin, Cout, mode in shapes96:
-            for m, B in (("bf16", bench.LINE1_BATCH), ("int8", bench.LINE2_BATCH)) \
-                    if mode == "int8" else (("bf16", bench.LINE1_BATCH),):
-                ms, plain_ms, lib_ms, bound, _ = time_conv(conv_inputs96, name, B, H, Cin,
-                                                           Cout, m, 3, 1)
-                for k, v in (("ms", ms), ("plain", plain_ms), ("library", lib_ms or 0.0),
-                             ("bound", bound)):
-                    sums[m][k] += v
-        for m, B, what in (("bf16", bench.LINE1_BATCH, "13 convs of one bf16 forward (line 1)"),
-                           ("int8", bench.LINE2_BATCH,
-                            "12 int8 convs of one int8 forward (line 2)")):
-            t = sums[m]
-            print(f"time base-96 {what}, B={B}: kernel {t['ms']:.3f} ms, plain "
-                  f"{t['plain']:.3f} ms, F.conv2d {t['library']:.3f} ms, bound "
-                  f"{t['bound']:.3f} ms", flush=True)
-
-        pc = dict(ms=0.0, plain=0.0, bound=0.0, bytes=0.0, operations=0.0)
-        for name, H, Cin, Cout, mode in cfg_shapes:
-            if mode == "int8":
-                ms, plain_ms, _, bound, by = time_conv(cfg_inputs, name, CFG_CHECK_BATCH, H,
-                                                       Cin, Cout, "int8", 3, 1,
-                                                       per_channel=True)
-                pc["ms"] += ms
-                pc["plain"] += plain_ms
-                pc["bound"] += bound
-                pc[by] += bound
-        print(f"time cfg 10 per-channel int8 convs of one CFG forward, B={CFG_CHECK_BATCH}: "
-              f"kernel {pc['ms']:.3f} ms, plain {pc['plain']:.3f} ms, bound {pc['bound']:.3f} ms",
-              flush=True)
+        # the 13 convs of one bf16 forward (line 1), the 12 int8 convs of one int8
+        # forward (line 2), the CFG net's 10 per-channel int8 convs
+        bench_conv.time_set("base-96", conv_inputs96, bench_conv.bf16_all(shapes96),
+                            {"bf16": bench.LINE1_BATCH}, 3, 1)
+        bench_conv.time_set("base-96", conv_inputs96, bench_conv.int8_only(shapes96),
+                            {"int8": bench.LINE2_BATCH}, 3, 1)
+        pc = bench_conv.time_set("cfg", cfg_inputs, bench_conv.int8_only(cfg_shapes),
+                                 {"int8": CFG_CHECK_BATCH}, 3, 1, per_channel=True)["int8"]
 
         # the int8 up-convs' products on the packed weights: each model's three
         # at its 3f batch, and base-96's at bench_int8's B=64 (the quant_up path;
@@ -2309,10 +2321,10 @@ def main():
                     x8 = quantize_act(x, sx).reshape(M, K)
                     ins.append((x8,))
                     libs.append((x8, wp[:N, :K].t().contiguous()))
-                ms = time_ms(torch, lambda a, wp=wp, N=N: matmul_int8_packed(a, wp, N), ins, 20)
-                plain_ms = time_ms(torch, lambda a, wp=wp, N=N: matmul_int8_packed_plain(a, wp, N),
+                ms = time_ms(lambda a, wp=wp, N=N: matmul_int8_packed(a, wp, N), ins, 20)
+                plain_ms = time_ms(lambda a, wp=wp, N=N: matmul_int8_packed_plain(a, wp, N),
                                    ins, 3)
-                lib_ms = time_ms(torch, torch._int_mm, libs, 20)
+                lib_ms = time_ms(torch._int_mm, libs, 20)
                 bound, by = matmul_bound_ms(M, K, N, "int8")
                 print(f"time int8 up-conv {label} {name} B={B} (M={M}, K={K}) x (K, N={N}): "
                       f"kernel {ms:.4f} ms (padded to {tuple(wp.shape)}), plain {plain_ms:.4f} ms, "
@@ -2344,8 +2356,8 @@ def main():
                 kfn = lambda a, b: matmul(a, b, torch.int32)  # noqa: E731
                 pfn = lambda a, b: matmul_plain(a, b, torch.int32)  # noqa: E731
                 lfn = torch._int_mm
-            ms, plain_ms, lib_ms = (time_ms(torch, kfn, ins, 20), time_ms(torch, pfn, ins, 4),
-                                    time_ms(torch, lfn, ins, 20))
+            ms, plain_ms, lib_ms = (time_ms(kfn, ins, 20), time_ms(pfn, ins, 4),
+                                    time_ms(lfn, ins, 20))
             bound, by = matmul_bound_ms(M, K, N, mode)
             print(f"time matmul {mode} {M}x{K}x{N}: kernel {ms:.4f} ms "
                   f"({2 * M * K * N / ms / 1e9:.1f} T/s), plain {plain_ms:.4f} ms, "
@@ -2355,9 +2367,9 @@ def main():
             del ins
         H, W, C, TH = HALO_CASES[0]
         ins = [(torch.randn((H, W, C), generator=gen, device=dev),) for _ in range(2)]
-        h_ms = time_ms(torch, lambda x: halo_rows_x2(x, TH), ins, 50)
-        h_plain = time_ms(torch, halo_rows_x2_plain, ins, 50)
-        h_lib = time_ms(torch, lambda x: x[1:-1] * 2.0, ins, 50)
+        h_ms = time_ms(lambda x: halo_rows_x2(x, TH), ins, 50)
+        h_plain = time_ms(halo_rows_x2_plain, ins, 50)
+        h_lib = time_ms(lambda x: x[1:-1] * 2.0, ins, 50)
         h_bound, h_by = halo_bound_ms(H, W, C)
         print(f"time halo_rows_x2 ({H},{W},{C}) TH={TH}: kernel {h_ms:.4f} ms, plain "
               f"{h_plain:.4f} ms, x[1:-1]*2 {h_lib:.4f} ms, bound {h_bound:.4f} ms ({h_by})",

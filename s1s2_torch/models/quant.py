@@ -37,7 +37,7 @@ from s1s2_torch.core import random
 from s1s2_torch.core.parametrize import Parameterization, q_sample
 from s1s2_torch.models.unet import BLOCKS, UPS, conv1x1, input_map, max_pool2
 from s1s2_torch.models.weights import params_from_numpy
-from s1s2_torch.ops.conv3x3 import conv3x3_relu, conv3x3_relu_int8, packed_int8_weight
+from s1s2_torch.ops.conv3x3 import conv3x3_relu, conv3x3_relu_int8, packed_weight
 from s1s2_torch.ops.pixel_shuffle import (depth_to_space, ps_conv_transpose_2x2,
                                           ps_conv_transpose_2x2_int8, ps_int8_weight)
 from s1s2_torch.train.checkpoint import load_params, msgpack_serialize
@@ -104,7 +104,7 @@ class QuantParams:
                     self.sx[name] = torch.tensor(float(sx), dtype=torch.float32,
                                                  device=sw.device)
             elif q.device.type == "cuda":
-                packed_int8_weight(q)  # the card kernel's layout, made once here
+                packed_weight(q)  # the card kernel's layout, made once here
 
     def to(self, device) -> "QuantParams":
         """A copy with every tensor on ``device`` (same scales)."""
@@ -149,7 +149,7 @@ def _forward(qp: QuantParams, x_and_cond: torch.Tensor, t_idx: torch.Tensor, *,
     tensor, or per channel when ``qp.act_perchannel``).
     mode='int8': the convs of ``qp.w8`` in int8 with the static scales, the
     other double-convs and up-convs in bf16."""
-    x = input_map(x_and_cond, t_idx, qp.stem_s2d, torch.bfloat16)
+    x = input_map(x_and_cond, t_idx, qp.stem_s2d, torch.bfloat16, pad=True)
 
     def record(x, name):
         ax = x.float().abs()
@@ -174,7 +174,7 @@ def _forward(qp: QuantParams, x_and_cond: torch.Tensor, t_idx: torch.Tensor, *,
         return ps_conv_transpose_2x2_int8(x, qp.up8[name], qp.sx[name], qp.deq[name],
                                           qp.bias[name])
 
-    e1 = conv3x3_relu(x, qp.bf16["inc"], qp.b32["inc"])
+    e1 = conv3x3_relu(x, qp.bf16["inc"], qp.b32["inc"], padded_input=True)
     e2 = max_pool2(block(e1, "down1"))
     e3 = max_pool2(block(e2, "down2"))
     e4 = max_pool2(block(e3, "down3"))

@@ -35,7 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from s1s2_torch.core import random
-from s1s2_torch.ops.conv3x3 import conv3x3_relu, conv3x3_relu_train
+from s1s2_torch.ops.conv3x3 import K_MULT, conv3x3_relu, conv3x3_relu_train
 from s1s2_torch.ops.pixel_shuffle import (depth_to_space, ps_conv_transpose_2x2,
                                           space_to_depth)
 
@@ -70,23 +70,45 @@ def conv1x1(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.
 
 
 def input_map(x_and_cond: torch.Tensor, t_idx: torch.Tensor, s: int,
-              dtype: torch.dtype) -> torch.Tensor:
+              dtype: torch.dtype, pad: bool = False) -> torch.Tensor:
     """(x_t ‖ cond) → s2d stem → ‖ raw t channel (cast to f32 first, then to
-    the compute dtype) → contiguous NHWC in ``dtype``."""
+    the compute dtype) → contiguous NHWC in ``dtype``. With ``pad`` (the
+    inference path's stem input) zero channels follow up to a multiple of 8
+    (129 → 136 for the 4× stem, 33 → 40, 9 → 16), in the same pass: the
+    conv kernel's TMA reads 16-byte pixel rows, and the ``inc`` weight's
+    missing rows count as zeros (``ops/conv3x3.py``; the CPU's plain
+    version reads the first Cin channels)."""
     xf = x_and_cond.float()
     if s > 1:
         xf = space_to_depth(xf, s)
-    B, H, W, _ = xf.shape
-    t_map = t_idx.float().reshape(B, 1, 1, 1).expand(B, H, W, 1)
-    return torch.cat([xf, t_map], dim=-1).to(dtype).contiguous()
+    B, H, W, C = xf.shape
+    parts = [xf, t_idx.float().reshape(B, 1, 1, 1).expand(B, H, W, 1)]
+    extra = -(C + 1) % K_MULT["bf16"]
+    if pad and extra:
+        parts.append(xf.new_zeros((1, 1, 1, 1)).expand(B, H, W, extra))
+    return torch.cat(parts, dim=-1).to(dtype).contiguous()
+
+
+def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``p`` in ``dtype``, made once per parameter (and again only after an
+    in-place change) and kept on it, so that the conv kernel's weight
+    layout, made once per weight tensor, is made once per parameter."""
+    cached = getattr(p, "_s1s2_cast", None)
+    if (cached is not None and cached[0] == p._version and cached[1].dtype == dtype
+            and cached[1].device == p.device):
+        return cached[1]
+    c = p.detach().to(dtype).contiguous()
+    p._s1s2_cast = (p._version, c)
+    return c
 
 
 def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-            autograd: bool) -> torch.Tensor:
+            autograd: bool, padded_input: bool = False) -> torch.Tensor:
     if autograd:
         return conv3x3_relu_train(x, kernel, bias)
     # the bias rounds to the compute dtype first, as flax's nn.Conv does
-    return conv3x3_relu(x, kernel.to(x.dtype).contiguous(), bias.to(x.dtype).float())
+    return conv3x3_relu(x, cast_param(kernel, x.dtype), bias.to(x.dtype).float(),
+                        padded_input=padded_input)
 
 
 def double_conv(x, k1, b1, k2, b2, autograd: bool) -> torch.Tensor:
@@ -100,8 +122,8 @@ class Conv3x3(nn.Module):
         self.bias = _param(co)
         self.autograd = autograd
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3x3(x, self.kernel, self.bias, self.autograd)
+    def forward(self, x: torch.Tensor, padded_input: bool = False) -> torch.Tensor:
+        return conv3x3(x, self.kernel, self.bias, self.autograd, padded_input)
 
 
 class DoubleConv(nn.Module):
@@ -173,8 +195,9 @@ class UNetSmall(nn.Module):
     def forward(self, x_and_cond: torch.Tensor, t_idx: torch.Tensor) -> torch.Tensor:
         s = self.stem_s2d
         pool = max_pool2_train if self.autograd else max_pool2
-        x = input_map(x_and_cond, t_idx, s, self.compute_dtype)
-        e1 = self.inc(x)
+        pad = not self.autograd  # the kernel's stem input; autograd's conv takes it as it is
+        x = input_map(x_and_cond, t_idx, s, self.compute_dtype, pad=pad)
+        e1 = self.inc(x, padded_input=pad)
         e2 = pool(self.down1(e1))
         e3 = pool(self.down2(e2))
         e4 = pool(self.down3(e3))

@@ -11,7 +11,7 @@ header, so the build needs only ``nvcc`` and takes seconds. At first use:
 * every ``nvcc`` call has a time limit; the library is written under a
   temporary name and moved into place with ``os.replace``, so two processes
   never see a half-written file and no lock file exists;
-* ``ptxas`` reports each kernel's registers and shared memory
+* ``ptxas`` reports each kernel's registers, shared memory and spills
   (``-Xptxas -v``); the lines are kept beside the library and printed once
   per process.
 
@@ -86,8 +86,11 @@ def _build_dir(sources: List[Path]) -> Path:
 
 
 def _ptxas_lines(stderr: str) -> List[str]:
+    """Each kernel's entry, properties (stack frame and spills) and usage
+    lines, and ptxas's advisories (such as a wgmma pipeline it serialized)."""
+    keep = ("Used", "Compiling entry", "Function properties", "(C7")
     return [ln.strip() for ln in stderr.splitlines()
-            if "ptxas info" in ln and ("Used" in ln or "Compiling entry" in ln)]
+            if ("ptxas" in ln and any(k in ln for k in keep)) or "spill stores" in ln]
 
 
 def _run_all(cmds: List[List[str]], deadline: float) -> List[str]:
@@ -160,6 +163,8 @@ class Kernels:
             # x, x8 scratch, packed w8, deq, bias, y, B, H, W, Cin, Cout, sx, relu,
             # device, stream
             "s1s2k_conv3x3_int8": [P, P, P, P, P, P, I, I, I, I, I, F, P, I, I, P],
+            # mode (1: int8), Cs, Cout, out: int[6]
+            "s1s2k_conv3x3_plan": [I, I, I, P],
             # x, eps, x0, xn, n, s1m, sabg, sabn, s1mn, device, stream
             "s1s2k_ddim_update": [P, P, P, P, ctypes.c_int64, F, F, F, F, I, P],
             # a, b, b_t scratch (int8), c, M, N, K, mode, device, stream

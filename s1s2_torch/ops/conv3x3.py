@@ -4,7 +4,9 @@ Port of the Pallas kernels ``conv3x3_relu`` and ``conv3x3_relu_bs`` of the
 JAX package's ``ops/conv3x3.py`` (nine shifted (H·W, Cin) × (Cin, Cout)
 products, f32 accumulation, fused bias/ReLU), and of the int8 conv that
 ``models/quant.py`` runs in its double-conv blocks. Both modes are one
-hand-written CUDA kernel (``csrc/conv3x3.cu``):
+hand-written CUDA kernel for Hopper (``csrc/conv3x3.cu``: ``wgmma`` fed by
+TMA, A from registers through ``ldmatrix``, an N tile chosen per launch
+from Cout, :func:`conv_plan`):
 
 * :func:`conv3x3_relu` — bf16 in, f32 accumulation, ``acc + b``, optional
   ReLU, bf16 out.
@@ -16,10 +18,18 @@ hand-written CUDA kernel (``csrc/conv3x3.cu``):
   scale, ``sw`` alone when the per-channel scales were folded into the
   weights (``models/quant.py``).
 
-On the card the int8 mode quantizes the activations in a first kernel into
-an int8 copy with the channels zero-padded to a multiple of 32 (scratch
-allocated here), and reads its weights as ``(9, Cout_pad, Cin_pad)``
-(:func:`packed_int8_weight`), made once per weight tensor and kept on it.
+The kernel reads its weights K-major, ``(9, Cout, Cin)`` with Cin padded
+as the activations are (:func:`packed_weight`, made once per weight tensor
+and kept on it). TMA reads the activations as a (C, W, H, B) tensor, whose
+pixel rows must be 16-byte multiples: the int8 mode quantizes them in a
+first kernel into an int8 copy with the channels zero-padded to a multiple
+of 32 (scratch allocated here); the bf16 mode takes an input whose Cin is
+a multiple of 8 as it is, and one whose Cin is not with its channels
+zero-padded to the next multiple of 8, upstream (the stems' ``inc``: the
+model's ``input_map`` writes it so, and the model says so with
+``padded_input``) or here (a pass of its own). A padded input meets zero
+weight rows, so the sums are those of the unpadded one; on the CPU the
+plain version reads the first Cin channels.
 
 Each wrapper runs its plain PyTorch version when the tensor lies on the CPU
 and launches the kernel when it lies on a CUDA device; it never falls back
@@ -33,14 +43,28 @@ PyTorch's differentiable conv, as the JAX package trains through XLA's
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from s1s2_torch.ops import _build
 
-# the kernel's tiles (csrc/conv3x3.cu): 64 output channels a block, 32 int8
-# input channels a chunk
-N_TILE, K_CHUNK_I8 = 64, 32
+# the channel multiple of each mode's activations and weight rows: 16-byte
+# pixel rows for TMA, 32 int8 channels (a k-step) for the quantized copy
+K_MULT = {"bf16": 8, "int8": 32}
+# the kernel's tile plan (csrc/conv3x3.cu:plan): a block's 16 x 16 output
+# pixels with a haloed 18 x 18 tile of a chunk of 32, 64 or 128 bytes of
+# each pixel's channels; N tiles; shared memory
+CHUNK_BYTES = (32, 64, 128)
+N_WIDTHS, N_MAX, MAX_STAGES = (16, 24, 32, 48, 64, 96, 128), 128, 8
+SMEM_DYN = 231424
+
+
+def _a_stride(kb: int) -> int:
+    """Bytes of one haloed input-tile buffer of ``kb``-byte chunks, 1024-aligned."""
+    return -(-18 * 18 * kb // 1024) * 1024
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -51,13 +75,27 @@ def _oihw(w: torch.Tensor) -> torch.Tensor:
     return w.permute(3, 2, 0, 1)
 
 
+@contextlib.contextmanager
+def _no_tf32():
+    """cuDNN's f32 convs in f32: PyTorch lets them round their operands to
+    TF32 by default (on an H100, 2.8e-4 relative on a 768-channel conv's
+    output and 1.4e-2 on its gradients, PERF.md, PR 14). Sets the convs'
+    own precision, which works whichever of PyTorch's two flag interfaces
+    the caller used (reading the legacy ``allow_tf32`` refuses a mix)."""
+    conv = torch.backends.cudnn.conv
+    keep = conv.fp32_precision
+    conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        conv.fp32_precision = keep
+
+
 def conv3x3_relu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                        apply_relu: bool = True) -> torch.Tensor:
     """Plain version: ``F.conv2d`` in f32 on the inputs' values (TF32 off),
     ``+ b``, optional ReLU, one rounding to ``x.dtype``."""
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
+    with _no_tf32():
         y = F.conv2d(_nchw(x.float()), _oihw(w.float()), padding=1)
     y = y.permute(0, 2, 3, 1) + b.float()
     if apply_relu:
@@ -65,14 +103,40 @@ def conv3x3_relu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.to(x.dtype).contiguous()
 
 
+class _ConvF32(torch.autograd.Function):
+    """``F.conv2d`` (3×3, SAME, NCHW/OIHW) whose forward and backward both
+    run with TF32 off, whatever the caller's flags: autograd runs the
+    backward after the forward's context has closed."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        with _no_tf32():
+            return F.conv2d(x, w, padding=1)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        with _no_tf32():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w, None, (1, 1), (1, 1), (1, 1), False, (0, 0), 1,
+                (ctx.needs_input_grad[0], ctx.needs_input_grad[1], False))
+        return gx, gw
+
+
 def conv3x3_relu_train(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The training path's conv, differentiable: ``F.conv2d`` in x's dtype
-    (cuDNN on the card), then the bias add in x's dtype, as flax's
-    ``nn.Conv`` adds it after the conv has rounded, then ReLU. ``w`` and
-    ``b`` are the f32 parameters, cast inside the graph so that their
+    (cuDNN on the card; in f32 kept off TF32, forward and backward, as the
+    JAX package's f32 conv is f32), then the bias add in x's dtype, as
+    flax's ``nn.Conv`` adds it after the conv has rounded, then ReLU. ``w``
+    and ``b`` are the f32 parameters, cast inside the graph so that their
     gradients come back in f32. NHWC in, NHWC out."""
-    y = F.conv2d(_nchw(x), _oihw(w.to(x.dtype)), padding=1).permute(0, 2, 3, 1)
-    return torch.relu(y + b.to(x.dtype))
+    xn, wn = _nchw(x), _oihw(w.to(x.dtype))
+    if x.dtype == torch.float32 and x.is_cuda:
+        y = _ConvF32.apply(xn, wn)
+    else:
+        y = F.conv2d(xn, wn, padding=1)
+    return torch.relu(y.permute(0, 2, 3, 1) + b.to(x.dtype))
 
 
 def _scale(sx, device) -> torch.Tensor:
@@ -121,7 +185,7 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> Non
         raise ValueError(f"{name}: expected device {device}, got {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if name in ("x", "w") and t.data_ptr() % 16:
+    if name == "x" and t.data_ptr() % 16:
         raise ValueError(f"{name}: must start on a 16-byte boundary (the kernel "
                          f"loads 16 bytes at a time)")
 
@@ -130,48 +194,93 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def packed_int8_weight(w8: torch.Tensor) -> torch.Tensor:
-    """The int8 mode's weight layout: HWIO (3,3,Cin,Cout) int8 →
-    (9, Cout rounded up to 64, Cin rounded up to 32), zero-padded, so the
-    kernel reads 32 consecutive input channels of one output channel with
-    one 16-byte load per half. Made once per weight tensor (and again only
-    if the tensor was changed in place) and kept on it."""
-    cached = getattr(w8, "_s1s2_packed", None)
-    if cached is not None and cached[0] == w8._version:
+def packed_weight(w: torch.Tensor) -> torch.Tensor:
+    """The kernel's weight layout: HWIO (3,3,Cin,Cout) → K-major (9, Cout,
+    Cin rounded up to the mode's channel multiple, ``K_MULT``: 8 for bf16 or
+    any float, 32 for int8), zero-padded, so that TMA brings an N tile's
+    rows of 128 bytes of input channels for one tap at a time. Made once per
+    weight tensor (and again only if the tensor was changed in place) and
+    kept on it."""
+    cached = getattr(w, "_s1s2_packed", None)
+    if cached is not None and cached[0] == w._version:
         return cached[1]
-    _, _, Cin, Cout = w8.shape
-    p = torch.zeros((9, _round_up(Cout, N_TILE), _round_up(Cin, K_CHUNK_I8)),
-                    dtype=torch.int8, device=w8.device)
-    p[:, :Cout, :Cin] = w8.reshape(9, Cin, Cout).transpose(1, 2)
-    w8._s1s2_packed = (w8._version, p)
+    _, _, Cin, Cout = w.shape
+    k_mult = K_MULT["int8" if w.dtype == torch.int8 else "bf16"]
+    p = torch.zeros((9, Cout, _round_up(Cin, k_mult)), dtype=w.dtype, device=w.device)
+    p[:, :, :Cin] = w.reshape(9, Cin, Cout).transpose(1, 2)
+    w._s1s2_packed = (w._version, p)
     return p
 
 
-def _conv_shapes(x: torch.Tensor, w: torch.Tensor):
-    if x.dim() != 4 or w.dim() != 4 or w.shape[:2] != (3, 3) or w.shape[2] != x.shape[3]:
-        raise ValueError(f"expected x (B,H,W,Cin) and w (3,3,Cin,Cout), got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
-    B, H, W, Cin = x.shape
-    return B, H, W, Cin, w.shape[3]
+def conv_plan(mode: str, cs: int, cout: int) -> dict:
+    """The kernel's launch plan for ``cs`` input channels as it reads them
+    (bf16: a multiple of 8; int8: of 32) and ``cout`` output channels, by
+    the rules the C entry applies (``csrc/conv3x3.cu:plan``, held to this
+    one on the card through :func:`kernel_plan`): ``ntn`` N tiles of ``bn``
+    channels (the narrowest width of ``N_WIDTHS`` that holds an even split
+    of Cout into tiles of at most 128), ``nchunks`` chunks of ``kb`` bytes
+    of each pixel (``chunk`` channels; 32 or 64 bytes where a pixel's
+    channels fit, else 128), ``na`` input-tile buffers, ``nst`` weight
+    stages filling the shared memory, and the global strides in bytes of the
+    activation and weight tensor maps."""
+    e = 2 if mode == "bf16" else 1
+    ntn = -(-cout // N_MAX)
+    bn = next(w for w in N_WIDTHS if w >= -(-cout // ntn))
+    kb = next(k for k in CHUNK_BYTES if cs * e <= k or k == CHUNK_BYTES[-1])
+    nchunks = -(-cs * e // kb)
+    na = 2 if nchunks > 1 else 1
+    nst = min(MAX_STAGES, (SMEM_DYN - 1024 - na * _a_stride(kb)) // (bn * kb))
+    return dict(bn=bn, ntn=-(-cout // bn), kb=kb, nchunks=nchunks, chunk=kb // e, na=na,
+                nst=nst, smem=1024 + na * _a_stride(kb) + nst * bn * kb,
+                x_strides=(cs * e,), w_strides=(cs * e, cs * e * cout))
+
+
+def kernel_plan(mode: str, cs: int, cout: int) -> dict:
+    """The plan the built C entry computes (``s1s2k_conv3x3_plan``): the
+    keys ``bn``, ``ntn``, ``kb``, ``na``, ``nst`` and ``smem`` of
+    :func:`conv_plan`. Needs the built library, so a CUDA toolkit."""
+    keys = ("bn", "ntn", "kb", "na", "nst", "smem")
+    out = (ctypes.c_int * len(keys))()
+    _build.check(_build.kernels().s1s2k_conv3x3_plan(int(mode == "int8"), cs, cout, out),
+                 "conv3x3 plan")
+    return dict(zip(keys, out))
+
+
+def _conv_shapes(x: torch.Tensor, w: torch.Tensor, padded_input: bool = False):
+    """(B, H, W, Cin, Cout); with ``padded_input`` x holds Cin rounded up to
+    a multiple of 8 channels (a stem input padded upstream), else Cin."""
+    ok = x.dim() == 4 and w.dim() == 4 and w.shape[:2] == (3, 3) and x.shape[3] == (
+        _round_up(w.shape[2], K_MULT["bf16"]) if padded_input else w.shape[2])
+    if not ok:
+        raise ValueError(f"expected x (B,H,W,Cin{' rounded up to 8' if padded_input else ''}) "
+                         f"and w (3,3,Cin,Cout), got {tuple(x.shape)} and {tuple(w.shape)}")
+    B, H, W, _ = x.shape
+    return B, H, W, w.shape[2], w.shape[3]
 
 
 def conv3x3_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 apply_relu: bool = True) -> torch.Tensor:
+                 apply_relu: bool = True, padded_input: bool = False) -> torch.Tensor:
     """x (B,H,W,Cin), w (3,3,Cin,Cout), b (Cout,) f32 → (B,H,W,Cout) in
-    x.dtype. On a CUDA device x and w must be bf16 (the kernel's mode); on
-    the CPU any float dtype runs through the plain version."""
-    B, H, W, Cin, Cout = _conv_shapes(x, w)
+    x.dtype. With ``padded_input`` x holds Cin rounded up to a multiple of 8
+    channels, the ones past Cin zero (a stem input that ``input_map`` wrote
+    with ``pad=True``). On a CUDA device x and w must be bf16 (the kernel's
+    mode); on the CPU any float dtype runs through the plain version."""
+    B, H, W, Cin, Cout = _conv_shapes(x, w, padded_input)
     if x.device.type == "cpu":
-        return conv3x3_relu_plain(x, w, b, apply_relu)
-    _check(x, "x", torch.bfloat16, (B, H, W, Cin), x.device)
+        return conv3x3_relu_plain(x[..., :Cin] if x.shape[3] != Cin else x, w, b, apply_relu)
+    _check(x, "x", torch.bfloat16, x.shape, x.device)
     _check(w, "w", torch.bfloat16, (3, 3, Cin, Cout), x.device)
     _check(b, "b", torch.float32, (Cout,), x.device)
     k = _build.kernels()
+    cs = _round_up(Cin, K_MULT["bf16"])
+    if x.shape[3] != cs:  # rows TMA cannot stride: zero channels up to cs
+        x = F.pad(x, (0, cs - x.shape[3]))
+    wp = packed_weight(w)
     y = torch.empty((B, H, W, Cout), dtype=torch.bfloat16, device=x.device)
     rc = k.s1s2k_conv3x3_bf16(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-        B, H, W, Cin, Cout, int(apply_relu), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(),
+        B, H, W, cs, Cout, int(apply_relu), x.device.index,
+        _build.stream(x.device))
     _build.check(rc, "conv3x3_relu (bf16)")
     conv3x3_relu.launches += 1
     return y
@@ -197,14 +306,15 @@ def conv3x3_relu_int8(x: torch.Tensor, w8: torch.Tensor, sx,
     if per_channel:
         _check(sx, "sx", torch.float32, (Cin,), x.device)
     k = _build.kernels()
-    wp = packed_int8_weight(w8)
-    x8 = torch.empty((B, H, W, _round_up(Cin, K_CHUNK_I8)), dtype=torch.int8, device=x.device)
+    wp = packed_weight(w8)
+    x8 = torch.empty((B, H, W, _round_up(Cin, K_MULT["int8"])), dtype=torch.int8,
+                     device=x.device)
     y = torch.empty((B, H, W, Cout), dtype=torch.bfloat16, device=x.device)
     rc = k.s1s2k_conv3x3_int8(
         x.data_ptr(), x8.data_ptr(), wp.data_ptr(), deq.data_ptr(), b.data_ptr(),
         y.data_ptr(), B, H, W, Cin, Cout, 0.0 if per_channel else float(sx),
         sx.data_ptr() if per_channel else None, int(apply_relu), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _build.stream(x.device))
     _build.check(rc, "conv3x3_relu_int8")
     conv3x3_relu_int8.launches += 1
     conv3x3_relu_int8.mode_launches["per_channel" if per_channel else "per_tensor"] += 1

@@ -28,7 +28,7 @@ from s1s2_torch.ops import _build
 from s1s2_torch.ops import pixel_shuffle as tps
 from s1s2_torch.ops.conv3x3 import (conv3x3_int8_acc_plain, conv3x3_relu,
                                     conv3x3_relu_int8, conv3x3_relu_int8_plain,
-                                    conv3x3_relu_plain, packed_int8_weight, quantize_act)
+                                    conv3x3_relu_plain, packed_weight, quantize_act)
 from s1s2_torch.ops.fused_elementwise import (ddim_coefs, ddim_update_plain,
                                               fused_ddim_update)
 from s1s2_torch.sampling.samplers import _ddim_linspace_scan
@@ -88,6 +88,19 @@ class TestConvPlainF32:
                                     tile_rows=R, apply_relu=relu)
         got = conv3x3_relu_plain(_t(x), _t(w), _t(b), apply_relu=relu)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-5)
+
+
+def test_train_conv_kept_off_tf32_is_the_conv_and_its_gradients():
+    """The card's f32 training conv (``conv3x3._ConvF32``: ``F.conv2d`` with
+    TF32 off in its forward and its backward) is ``F.conv2d`` and its exact
+    gradients: the same output, and gradcheck in f64, here on the CPU."""
+    from s1s2_torch.ops.conv3x3 import _ConvF32
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 5, 7, 6), generator=g, dtype=torch.float64, requires_grad=True)
+    w = torch.randn((4, 5, 3, 3), generator=g, dtype=torch.float64, requires_grad=True)
+    assert torch.equal(_ConvF32.apply(x, w), torch.nn.functional.conv2d(x, w, padding=1))
+    assert torch.autograd.gradcheck(_ConvF32.apply, (x, w))
 
 
 class TestConvPlainBF16:
@@ -259,28 +272,28 @@ class TestConvInt8Plain:
 
     @pytest.mark.parametrize("B,H,W,Ci,Co", INT8_SHAPES + [(1, 8, 8, 129, 70)])
     def test_packed_weights_give_the_same_implicit_gemm(self, rng, B, H, W, Ci, Co):
-        """The card kernel's int8 layout: weights (9, Cout up to 64, Cin up
-        to 32), activations with Cin zero-padded to 32, summed as nine
-        shifted (B·H·W, Cin_pad) × (Cin_pad, Cout) products, tap = 3·ky + kx.
+        """The card kernel's int8 layout: weights (9, Cout, Cin up to 32),
+        activations with Cin zero-padded to 32, summed as nine shifted
+        (B·H·W, Cin_pad) × (Cin_pad, Cout) products, tap = 3·ky + kx.
         Equal to the plain int32 accumulator; packed once per weight tensor,
         again only after an in-place change."""
         xb, w8, *_, sx = _int8_case(rng, B, H, W, Ci, Co)
         x8 = quantize_act(torch.from_numpy(xb.copy()).to(torch.bfloat16), sx)
         w = torch.from_numpy(w8)
-        p = packed_int8_weight(w)
-        cs, cop = -(-Ci // 32) * 32, -(-Co // 64) * 64
-        assert p.dtype == torch.int8 and tuple(p.shape) == (9, cop, cs)
-        assert not p[:, Co:].any() and not p[:, :, Ci:].any()
+        p = packed_weight(w)
+        cs = -(-Ci // 32) * 32
+        assert p.dtype == torch.int8 and tuple(p.shape) == (9, Co, cs)
+        assert not p[:, :, Ci:].any()
         xp = torch.zeros((B, H + 2, W + 2, cs), dtype=torch.int64)
         xp[:, 1:-1, 1:-1, :Ci] = x8.long()
-        acc = torch.zeros((B, H, W, cop), dtype=torch.int64)
+        acc = torch.zeros((B, H, W, Co), dtype=torch.int64)
         for tap in range(9):
             ky, kx = divmod(tap, 3)
             acc += xp[:, ky:ky + H, kx:kx + W] @ p[tap].long().T
-        assert torch.equal(acc[..., :Co].int(), conv3x3_int8_acc_plain(x8, w))
-        assert packed_int8_weight(w) is p
+        assert torch.equal(acc.int(), conv3x3_int8_acc_plain(x8, w))
+        assert packed_weight(w) is p
         w.mul_(-1)
-        assert torch.equal(packed_int8_weight(w)[:, :Co, :Ci], -p[:, :Co, :Ci])
+        assert torch.equal(packed_weight(w), -p)
 
     def test_wrapper_on_cpu_is_plain(self, rng):
         xb, w8, sw, b, sx = _int8_case(rng, 1, 8, 8, 6, 5)

@@ -98,10 +98,12 @@ def test_check_ops_allows_a_bf16_op_one_ulp_and_no_more(name):
 # instructions the rules of ``chip_smoke.sass_rules`` read (the spellings are
 # the card's own: ``HGMMA.64x256x16.F32.BF16``, ``UTMALDG.2D``, ``UBLKCP.S.G``)
 _BUILT = {
-    "_ZN4conv19conv3x3_bf16_kernelILb0ELb0EEEvPKv": ["LDSM.16.M88.4 R4, [R2]",
-                                                     "HMMA.16816.F32.BF16 R8, R4, R6, R8"],
-    "_ZN4conv19conv3x3_int8_kernelEPKv": ["LDSM.16.M88.4 R4, [R2]",
-                                          "IMMA.16832.S8.S8 R8, R4.ROW, R6.COL, R8"],
+    "_ZN4conv19conv3x3_bf16_kernelILi24EEEv14CUtensorMap_st": [
+        "UTMALDG.4D [UR8], [UR4]", "UTMALDG.3D [UR16], [UR12]", "LDSM.16.M88.4 R4, [R2]",
+        "HGMMA.64x24x16.F32.BF16 R24, R4, gdesc[UR4], R24, gsb0"],
+    "_ZN4conv19conv3x3_int8_kernelILi128EEEv14CUtensorMap_st": [
+        "UTMALDG.4D [UR8], [UR4]", "UTMALDG.3D [UR16], [UR12]", "LDSM.16.M88.4 R4, [R2]",
+        "IGMMA.64x128x32.S8.S8 R24, R4, gdesc[UR4], R24, gsb0"],
     "_ZN6matmul13matmul_kernelILi0EEEv14CUtensorMap_st": [
         "UTMALDG.2D [UR8], [UR4]", "HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24, gsb0",
         "STG.E.64 desc[UR4][R2.64], R24"],
@@ -130,6 +132,8 @@ def test_sass_rules_pass_the_kernels_as_built():
     counts = chip_smoke.sass_counts(_sass(_BUILT))
     assert set(counts) == set(_BUILT)
     chip_smoke.sass_rules(counts)
+    conv = counts["_ZN4conv19conv3x3_int8_kernelILi128EEEv14CUtensorMap_st"]
+    assert conv["IGMMA"] == 1 and conv["UTMALDG"] == 2 and conv["IMMA"] == 0
     mm = counts["_ZN6matmul13matmul_kernelILi1EEEv14CUtensorMap_st"]
     assert mm["HGMMA"] == 1 and mm["UTMALDG"] == 1 and mm["HMMA"] == 0
     halo = counts["_ZN4halo19halo_rows_x2_kernelEPKfPfixix"]
@@ -151,7 +155,15 @@ def test_sass_rules_pass_the_kernels_as_built():
     ("_ZN4halo19halo_rows_x2_kernelEPKfPfixix",
      ["UBLKCP.S.G [UR8], [UR6], UR4", "STG.E.128 desc[UR4][R6.64], R4"]),
     # a conv off the tensor cores
-    ("_ZN4conv19conv3x3_bf16_kernelILb0ELb0EEEvPKv", ["FFMA R8, R4, R6, R8"]),
+    ("_ZN4conv19conv3x3_bf16_kernelILi24EEEv14CUtensorMap_st", ["FFMA R8, R4, R6, R8"]),
+    # a conv back on mma.sync with cp.async
+    ("_ZN4conv19conv3x3_bf16_kernelILi24EEEv14CUtensorMap_st",
+     ["LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64]", "LDSM.16.M88.4 R4, [R2]",
+      "HMMA.16816.F32.BF16 R8, R4, R6, R8"]),
+    # a conv on wgmma without TMA
+    ("_ZN4conv19conv3x3_int8_kernelILi128EEEv14CUtensorMap_st",
+     ["LDG.E.128 R4, desc[UR4][R2.64]", "LDSM.16.M88.4 R4, [R2]",
+      "IGMMA.64x128x32.S8.S8 R24, R4, gdesc[UR4], R24, gsb0"]),
 ])
 def test_sass_rules_fail_a_kernel_that_fell_back(kernel, instrs):
     with pytest.raises(AssertionError, match=re.escape(kernel)):
@@ -162,3 +174,49 @@ def test_sass_rules_fail_a_missing_kernel():
     built = {k: v for k, v in _BUILT.items() if "halo" not in k}
     with pytest.raises(AssertionError, match="no halo_rows_x2_kernel"):
         chip_smoke.sass_rules(chip_smoke.sass_counts(_sass(built)))
+
+
+def test_sass_rules_fail_a_conv_mode_that_fell_back_alone():
+    """Each of the conv's instantiations (one per N tile) is held to the
+    rules: one on mma.sync among others on wgmma fails."""
+    built = {**_BUILT, "_ZN4conv19conv3x3_bf16_kernelILi96EEEv14CUtensorMap_st": [
+        "LDSM.16.M88.4 R4, [R2]", "HMMA.16816.F32.BF16 R8, R4, R6, R8"]}
+    with pytest.raises(AssertionError, match="ILi96E"):
+        chip_smoke.sass_rules(chip_smoke.sass_counts(_sass(built)))
+
+
+def test_ptxas_report_reads_each_kernels_spills():
+    lines = ["ptxas info    : Compiling entry function '_ZN4conv19conv3x3_bf16_kernelILi24EEEv"
+             "14CUtensorMap_st' for 'sm_90a'",
+             "ptxas info    : Function properties for _ZN4conv19conv3x3_bf16_kernelILi24EEEv"
+             "14CUtensorMap_st",
+             "0 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads",
+             "ptxas info    : Used 168 registers, used 1 barriers, 160 bytes smem",
+             "ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'",
+             "0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads"]
+    assert chip_smoke.ptxas_report(lines) == {
+        "_ZN4conv19conv3x3_bf16_kernelILi24EEEv14CUtensorMap_st": 16}
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_layout_probe_names_what_a_wrong_layout_reads(monkeypatch, mode):
+    """On the CPU the wrappers run their plain versions, so the probe is
+    clean; a conv that reads input channel c ^ 8 (a swizzle off by one bit)
+    is caught at every lit channel, and the probe names the channel read."""
+    from s1s2_torch.ops import conv3x3 as cv
+
+    case = [c for c in chip_smoke.PROBE_CASES if c[0] == mode][0]
+    assert chip_smoke.layout_probe(torch, *case, torch.device("cpu"), side=6, batch=1) == []
+    name = "conv3x3_relu" if mode == "bf16" else "conv3x3_relu_int8"
+    right = getattr(cv, name)
+
+    def wrong(x, w, *args):
+        perm = torch.arange(x.shape[-1]) ^ 8
+        return right(x[..., perm.clamp(max=x.shape[-1] - 1)].contiguous(), w, *args)
+
+    monkeypatch.setattr(cv, name, wrong)
+    _, cin, _, chans = case
+    bad = chip_smoke.layout_probe(torch, mode, cin, case[2], chans[:3], torch.device("cpu"),
+                                  side=6, batch=1)
+    assert [b[:2] for b in bad] == [(t, c) for t in range(9) for c in chans[:3]]
+    assert all(f"tap {t} channel {min(c ^ 8, cin - 1)} " in h for t, c, h in bad)
