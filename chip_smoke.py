@@ -209,6 +209,25 @@ Phases, each printing its own seconds:
    the ε teacher and ``distill_eps_student1`` on the first 4 evidence
    files: each row within 0.005 of the committed ``distill_demo/summary.json``
    (4m's bound on the committed score replays).
+4o. The device mesh (``parallel/``) at full width, world 1 over NCCL: two
+   child processes of this script (``--mesh-child``) run the CLIs in
+   process, one with no process group and one with torchrun's environment
+   (``RANK`` 0, ``WORLD_SIZE`` 1, ``LOCAL_RANK`` 0), so no later phase runs
+   under a group; the children run at the same time. Each reports, per run,
+   its seconds and launch counts by kernel and by mode (set to 0 before the
+   run, read after; they join the parent's counts by path); the
+   group's child also its world size, backend and
+   ``torch.cuda.nccl.version()``. (a) ``evaluate --mode ddim`` with the ε
+   teacher on the 32-file evidence set, bf16 and ``--int8``, with
+   ``--mesh_data 1`` under the group: the CSVs bit-equal, the MAE within
+   0.02 of 0.44074, the launches those of 4h's runs. (b) ``infer_scene`` on
+   4j(a)'s 384² scene, bf16 and ``--int8``, with ``--mesh_data 1``: the
+   scenes bit-equal, 4j's launches. (c) ``train`` at base 96, 256², B=8, one
+   epoch on 16 synthetic files under deterministic cuDNN (the trainer's
+   mesh over the world): the EMA files bit-equal, no kernel launched. (d)
+   ``distill`` with ``distill_eps_teacher``, teacher steps 4 and one epoch a
+   phase on those files, then 2 endpoint epochs (4 seeds, DDIM-20 rollouts):
+   the students bit-equal, exact launches.
 5. Timing at B=128 with CUDA events: each kernel at each path shape beside
    its plain version, ``F.conv2d`` (bf16 mode only) and its bound (the
    convs through ``tools/bench_conv.time_set``, the conv timing tool's own
@@ -221,7 +240,7 @@ Phases, each printing its own seconds:
    their plain versions, ``torch.matmul``/``torch._int_mm`` and
    ``x[1:-1]*2``.
 
-Each path of 4-4n is driven with every launch count set to 0 just before it
+Each path of 4-4o is driven with every launch count set to 0 just before it
 and read just after; a kernel of the path that was not launched fails it.
 Then a ``{"kernels": [...]}`` line (the conv rows' times are those of the
 24x4 main path at B=128, and the per-channel int8 row's those of the CFG
@@ -1049,6 +1068,186 @@ def distill_phase(torch, dev, card, drive, require, path_launches):
         p96 = score_file(f"{td}/p96.msgpack", 96, 1)
         require(np.isfinite(p96), f"distill cli base-96: MAE {p96}")
     return {"s_per_epoch_24x4": s_per_epoch, "ms_per_step_96": epoch2 / n_steps * 1e3}
+
+MESH_FILES = 16  # 4o: the train and distill runs' synthetic files
+MESH_DISTILL = ["--teacher_steps", "4", "--epochs_per_phase", "1", "--endpoint_epochs", "2",
+                "--batch_size", "8"]
+
+
+def mesh_child(spec_path, out_path):
+    """The child of 4o: each run of the spec through the dispatcher in this
+    process, its launch counts set to 0 before it and read after."""
+    import torch
+
+    from s1s2_torch.__main__ import main as dispatch
+    from s1s2_torch.ops.conv3x3 import conv3x3_relu, conv3x3_relu_int8
+    from s1s2_torch.ops.fused_elementwise import fused_ddim_update
+    from s1s2_torch.ops.halo import halo_rows_x2
+    from s1s2_torch.ops.matmul import matmul
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = (conv3x3_relu, conv3x3_relu_int8, fused_ddim_update, matmul, halo_rows_x2)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    out = {"runs": {}}
+    for name, argv, deterministic in spec:
+        for k in kernels:
+            k.launches = 0
+        matmul.mode_launches = dict.fromkeys(matmul.mode_launches, 0)
+        conv3x3_relu_int8.mode_launches = dict.fromkeys(conv3x3_relu_int8.mode_launches, 0)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=deterministic, allow_tf32=False):
+            rc = dispatch(argv)
+        torch.cuda.synchronize()
+        out["runs"][name] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                             "launches": {k.__name__: k.launches for k in kernels},
+                             "matmul_modes": dict(matmul.mode_launches),
+                             "int8_modes": dict(conv3x3_relu_int8.mode_launches),
+                             "tail": buf.getvalue().splitlines()[-1:]}
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        out.update(world=dist.get_world_size(), backend=dist.get_backend(),
+                   nccl=".".join(map(str, torch.cuda.nccl.version())))
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def mesh_phase(torch, dev, card, require, path_launches, matmul_launches, int8_launches):
+    """4o: the mesh at world 1 over NCCL against the runs without a group
+    (see the module docstring). The children's launch counts join the
+    parent's, by path and by mode."""
+    import socket
+
+    import numpy as np
+
+    from s1s2_torch.data.synthetic import make_synthetic_patches
+    from s1s2_torch.headline import CKPT_DIR
+
+    teacher = str(CKPT_DIR / "distill_eps_teacher.bf16.msgpack")
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        make_synthetic_patches(f"{td}/ev", n=FULL_FILES, size=SIZE, seed=0)
+        make_synthetic_patches(f"{td}/tr", n=MESH_FILES, size=SIZE, seed=0)
+        np.save(f"{td}/scene.npy", np.random.default_rng(0).standard_normal(
+            (SCENE_SIZE, SCENE_SIZE, 4)).astype(np.float32))
+        print(f"mesh: data made in {time.perf_counter() - t0:.2f} s", flush=True)
+
+        def spec(tag, mesh):
+            o, m = f"{td}/{tag}", (["--mesh_data", "1"] if mesh else [])
+            ev = ["evaluate", "--mode", "ddim", "--ckpt", teacher, "--patch_dir", f"{td}/ev",
+                  "--t_start", "200", "--ddim_steps", str(FULL_STEPS), "--device", "cuda"]
+            sc = ["infer_scene", "--scene", f"{td}/scene.npy", "--ckpt", teacher,
+                  "--ddim_steps", str(SCENE_STEPS), "--batch_size", "4", "--device", "cuda"]
+            return [
+                ("evaluate bf16", ev + ["--out_dir", f"{o}/ev"] + m, False),
+                ("evaluate int8", ev + ["--out_dir", f"{o}/ev8", "--int8"] + m, False),
+                ("infer_scene bf16", sc + ["--out_dir", f"{o}/sc"] + m, False),
+                ("infer_scene int8", sc + ["--out_dir", f"{o}/sc8", "--int8"] + m, False),
+                ("train", ["train", "--patch_dir", f"{td}/tr", "--model_path",
+                           f"{o}/tr/m.msgpack", "--batch_size", "8", "--epochs", "1",
+                           "--device", "cuda"], True),
+                ("distill", ["distill", "--patch_dir", f"{td}/tr", "--teacher", teacher,
+                             "--model_path", f"{o}/d/s.msgpack", "--device", "cuda"]
+                 + MESH_DISTILL, False)]
+
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        group_env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                         MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        plain_env = {k: v for k, v in os.environ.items()
+                     if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                                  "MASTER_PORT")}
+        procs = {}
+        t0 = time.perf_counter()
+        for tag, env in (("plain", plain_env), ("mesh", group_env)):
+            with open(f"{td}/{tag}.json", "w") as f:
+                json.dump(spec(tag, tag == "mesh"), f)
+            procs[tag] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-child", f"{td}/{tag}.json",
+                 f"{td}/{tag}.out.json"], env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs = {}
+        try:
+            for tag, p in procs.items():
+                logs[tag] = p.communicate(timeout=600)[0]
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        print(f"mesh: both children done in {time.perf_counter() - t0:.2f} s", flush=True)
+        for tag, p in procs.items():
+            require(p.returncode == 0, f"mesh child {tag} exited {p.returncode}:\n"
+                    f"{logs[tag][-4000:]}")
+        res = {}
+        for tag in procs:
+            with open(f"{td}/{tag}.out.json") as f:
+                res[tag] = json.load(f)
+        m = res["mesh"]
+        print(f"mesh: world {m.get('world')}, backend {m.get('backend')}, NCCL "
+              f"{m.get('nccl')} on {card}", flush=True)
+        require(m.get("world") == 1 and m.get("backend") == "nccl",
+                f"mesh child: the group did not come up over NCCL at world 1: {m}")
+        nb = FULL_FILES // FULL_BATCH
+        want = {
+            "evaluate bf16": {"conv3x3_relu": nb * FULL_STEPS * 13, "conv3x3_relu_int8": 0,
+                              "fused_ddim_update": nb * FULL_STEPS, "matmul": 0,
+                              "halo_rows_x2": 0},
+            "evaluate int8": path_launches["full ddim eps int8"],
+            "infer_scene bf16": path_launches["scene eps"],
+            "infer_scene int8": {**path_launches["scene eps"],
+                                 "conv3x3_relu_int8": SCENE_STEPS * 12},
+            "train": dict.fromkeys(("conv3x3_relu", "conv3x3_relu_int8", "fused_ddim_update",
+                                    "matmul", "halo_rows_x2"), 0),
+            # two phases of 2 steps, two teacher forwards a step; 4 DDIM-20 rollouts
+            "distill": {"conv3x3_relu": 2 * 2 * 2 * 13 + 4 * FULL_STEPS * 13,
+                        "conv3x3_relu_int8": 0, "fused_ddim_update": 4 * FULL_STEPS,
+                        "matmul": 0, "halo_rows_x2": 0}}
+        for tag in procs:
+            for name, r in res[tag]["runs"].items():
+                path_launches[f"mesh {tag} {name}"] = r["launches"]
+                matmul_launches[f"mesh {tag} {name}"] = r["matmul_modes"]
+                int8_launches[f"mesh {tag} {name}"] = r["int8_modes"]
+                print(f"mesh {tag} {name}: {r['seconds']:.2f} s, launches {r['launches']}; "
+                      f"{r['tail']}", flush=True)
+                require(r["rc"] in (0, None), f"mesh {tag} {name}: exit {r['rc']}")
+        for name, w in want.items():
+            got = {t: res[t]["runs"][name]["launches"] for t in procs}
+            if name == "infer_scene int8":  # the calibration forwards: the same in both
+                w = {**w, "conv3x3_relu": got["plain"]["conv3x3_relu"]}
+                require(got["plain"]["conv3x3_relu"] >= SCENE_STEPS,
+                        f"mesh infer_scene int8: launches {got}")
+            require(got["plain"] == w and got["mesh"] == w,
+                    f"mesh {name}: launches {got}, want {w}")
+
+        def same(rel_path):
+            a, b = (Path(td, t, rel_path).read_bytes() for t in ("plain", "mesh"))
+            return a == b
+
+        checks = {"evaluate bf16": "ev/ddim_metrics.csv", "evaluate int8": "ev8/ddim_metrics.csv",
+                  "infer_scene bf16": "sc/scene_pred.npy", "infer_scene int8": "sc8/scene_pred.npy",
+                  "train": "tr/m.msgpack", "distill": "d/s.msgpack"}
+        for name, f in checks.items():
+            eq = same(f)
+            print(f"mesh {name}: {f} with the group (world 1, NCCL) bit-equal to the run "
+                  f"without one: {eq}", flush=True)
+            require(eq, f"mesh {name}: {f} differs between the mesh and the run without one")
+        for t in ("plain", "mesh"):
+            with open(Path(td, t, "ev/ddim_summary.txt")) as f:
+                mae = float(f.read().split("MAE mean/std:")[1].split("/")[0])
+            print(f"mesh {t} evaluate bf16: MAE {mae:.5f} (anchor {TEACHER_ANCHOR}, difference "
+                  f"{mae - TEACHER_ANCHOR:+.5f})", flush=True)
+            require(abs(mae - TEACHER_ANCHOR) < MAE_SLACK,
+                    f"mesh {t}: MAE {mae} is not within {MAE_SLACK} of {TEACHER_ANCHOR}")
+    return {t: {n: r["seconds"] for n, r in res[t]["runs"].items()} for t in res}
+
 
 def panels_phase(torch, dev, card, drive, require, path_launches):
     """4n: the panel modes, forward and table parity, patchify, the
@@ -2273,6 +2472,10 @@ def main():
         panels_phase(torch, dev, card, drive, require, path_launches)
         torch.cuda.empty_cache()
 
+    with Phase("mesh: evaluate, infer_scene, train and distill at world 1 over NCCL against the "
+               "runs without a group"):
+        mesh_phase(torch, dev, card, require, path_launches, matmul_launches, int8_launches)
+
     with Phase("probe path: probe_int8 all"):
         probe = drive("probe", lambda: probe_int8.main(["all"]))
         n = path_launches["probe"]
@@ -2448,4 +2651,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(*sys.argv[2:4]))
     sys.exit(main())

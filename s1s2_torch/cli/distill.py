@@ -12,9 +12,14 @@ its parser, plus ``--device`` (the card by default). The recipe that
 reached quality-matched one-step sampling is progressive phases at
 ``--epochs_per_phase 250`` THEN ``--endpoint_epochs 150``; width
 distillation (``--student_base_ch``/``--student_s2d``) is endpoint-only
-(``--skip_progressive``). The multi-process flags (``--coordinator``,
-``--num_processes``, ``--process_id``) raise: ROADMAP §1 item 7 (7c) ports
-them. One JSON line is printed per progress record, and a final one.
+(``--skip_progressive``). One process runs on each device:
+``--coordinator``/``--num_processes``/``--process_id``, or torchrun's
+environment (``python -m torch.distributed.run --nproc_per_node N -m
+s1s2_torch distill ...``), bring up the process group (NCCL on the card,
+Gloo with ``--device cpu``). Both phases run on the data mesh
+``make_mesh_for_batch(--batch_size)`` over the group's ranks (1×1×1 without
+a group), and rank 0 alone writes the student and its snapshots. One JSON line is printed per progress record, and
+a final one, on every rank.
 """
 
 import argparse
@@ -95,7 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "epochs — a long run killed mid-way still leaves "
                          "a usable checkpoint")
     ap.add_argument("--coordinator", type=str, default=None,
-                    help="multi-process distillation: not ported (ROADMAP §1 item 7)")
+                    help="host:port of process 0 (brings up torch.distributed)")
     ap.add_argument("--num_processes", type=int, default=None)
     ap.add_argument("--process_id", type=int, default=None)
     ap.add_argument("--skip_progressive", action="store_true",
@@ -129,9 +134,16 @@ def main(argv=None) -> None:
         ap.error("--student_init only makes sense with "
                  "--skip_progressive (progressive distillation would "
                  "overwrite the init from the teacher)")
-    if any(v is not None for v in (args.coordinator, args.num_processes, args.process_id)):
-        raise NotImplementedError("multi-process distillation (--coordinator, --num_processes, "
-                                  "--process_id) is not ported yet (ROADMAP §1 item 7, 7c)")
+    from s1s2_torch.parallel.mesh import (backend_for, initialize_distributed, is_writer,
+                                          make_mesh_for_batch)
+
+    initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                           backend=backend_for(args.device))
+    # the data mesh over the process group's ranks; 1×1×1 without a group
+    mesh = make_mesh_for_batch(args.batch_size)
+    if not mesh.active:
+        print(json.dumps({"idle_rank": mesh.rank, "mesh": mesh.shape}), flush=True)
+        return
 
     from s1s2_torch.core.schedule import Schedule
     from s1s2_torch.data.dataset import NpzPatchDataset, load_set
@@ -166,7 +178,8 @@ def main(argv=None) -> None:
 
     def batches(phase, epoch):
         return batch_iterator(ds, args.batch_size, shuffle=True, drop_last=True,
-                              seed=args.seed, epoch=phase * 10_000 + epoch)
+                              seed=args.seed, epoch=phase * 10_000 + epoch,
+                              process_index=mesh.coord("data"), process_count=mesh.data)
 
     def log(d):
         # one write a record, so nothing can splice between text and newline
@@ -190,7 +203,7 @@ def main(argv=None) -> None:
         student = teacher
     else:
         result = progressive_distill(model, schedule, cfg, teacher, batches, progress=log,
-                                     device=device)
+                                     mesh=mesh, device=device)
         student = result["params"]
         phases = [h["student_steps"] for h in result["phase_history"]]
 
@@ -201,7 +214,8 @@ def main(argv=None) -> None:
         def snapshot(params, ep):
             # save_model writes a temporary file and os.replace's it into
             # place: a crash mid-write leaves the previous snapshot whole
-            save_model(params, snap_path)
+            if is_writer():
+                save_model(params, snap_path)
             log({"snapshot_epoch": ep, "path": snap_path})
 
         student = endpoint_distill(
@@ -211,9 +225,11 @@ def main(argv=None) -> None:
             progress=log, seed=args.seed, mode=args.endpoint_mode,
             student_param=args.student_param, guidance_scale=args.guidance_scale,
             student_model=student_model, snapshot_every=args.snapshot_every,
-            snapshot_fn=snapshot if args.snapshot_every > 0 else None, device=device)
+            snapshot_fn=snapshot if args.snapshot_every > 0 else None, mesh=mesh,
+            device=device)
 
-    save_model(student, args.model_path)
+    if is_writer():
+        save_model(student, args.model_path)
     log({
         "saved": args.model_path,
         "final_steps": int(args.final_steps),

@@ -5,8 +5,10 @@ the same flags, defaults and modes (``eval/harness.py:MODES``), and
     python -m s1s2_torch.cli.evaluate --mode ddim --patch_dir P --out_dir out \
         --ckpt examples/checkpoints/distill_eps_teacher.bf16.msgpack
 
-Prints the mode's result as one JSON line and returns it.
-``--mesh_data`` raises ``NotImplementedError`` (ROADMAP §1 item 7).
+Prints the mode's result as one JSON line and returns it (on every rank).
+``--mesh_data N`` runs N processes, one per device, launched by
+``python -m torch.distributed.run --nproc_per_node N -m s1s2_torch evaluate
+...`` (``eval/harness.py``); rank 0 writes the files.
 """
 
 import argparse

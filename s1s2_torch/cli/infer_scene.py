@@ -16,7 +16,10 @@ noise on the card from a ``torch.Generator`` seeded with ``(seed·2²⁰ +
 tile) & 0x7FFFFFFF`` (the JAX package draws ``normal(PRNGKey(that))``:
 other bits, the same determinism per (seed, tile); on the CPU the port
 draws JAX's bits), moves cond and predictions in f16 and keeps 3 batches in
-flight. ``--mesh_data`` raises ``NotImplementedError`` (ROADMAP §1 item 7).
+flight. ``--mesh_data N`` shards each tile batch over N processes, one per
+device, launched by ``python -m torch.distributed.run --nproc_per_node N -m
+s1s2_torch infer_scene ...`` (``parallel.shard_predict_batch``: each rank
+samples its rows, every rank gathers the batch); rank 0 writes the scene.
 """
 
 import argparse
@@ -48,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--guidance_scale", type=float, default=None)
     ap.add_argument("--solver", choices=["ddim", "dpm2m"], default="ddim")
     ap.add_argument("--mesh_data", type=int, default=0,
-                    help="shard tile batches over N devices (not ported: raises unless 0)")
+                    help="shard tile batches over N processes' 'data' axis (one per device; "
+                         "the world must be N)")
     ap.add_argument("--fast_transfer", action="store_true",
                     help="draw each tile's noise on the device (deterministic per tile), "
                          "move cond/pred in f16, keep 3 batches in flight")
@@ -148,14 +152,17 @@ def make_predictor(args, state, device, qp=None, device_noise=None, f16_out=None
         return torch.stack([torch.randn((ps, ps, C), generator=gen.manual_seed(int(s)),
                                         dtype=torch.float32, device=device) for s in seeds])
 
-    def predict_batch(cond_b, noise_b):
-        cond = upload(cond_b, device).float()
+    def predict_batch(cond_b, noise_b, rows=slice(None)):
+        # the tag and the η draws are the whole batch's; a mesh rank then
+        # samples its rows (parallel.shard_predict_batch)
+        B = len(cond_b)
         if device_noise:
             tag = int(noise_b[0])
-            noise = tile_noise(noise_b)
         else:
             tag = int(np.asarray(noise_b[0, 0, 0, 0], np.float32).view(np.int32))
-            noise = upload(noise_b, device)
+        cond_b, noise_b = cond_b[rows], noise_b[rows]
+        cond = upload(cond_b, device).float()
+        noise = tile_noise(noise_b) if device_noise else upload(noise_b, device)
         if qp is not None:
             fn = (make_quant_cfg_denoise_fn(qp, cond, args.guidance_scale)
                   if args.guidance_scale is not None else make_quant_denoise_fn(qp, cond))
@@ -174,7 +181,8 @@ def make_predictor(args, state, device, qp=None, device_noise=None, f16_out=None
             # batch's noise or seed payload folded into PRNGKey(seed)
             out = ddim_grid_sample(fn, noise * vscale, schedule, grid, Parameterization.V,
                                    eta=args.eta,
-                                   key=random.fold_in(random.PRNGKey(args.seed), tag))
+                                   key=random.fold_in(random.PRNGKey(args.seed), tag),
+                                   batch_rows=(rows, B))
         # f16 is a transfer format: predictions that stay on the device for
         # the device stitch keep f32
         return out.to(torch.float16) if f16_out else out
@@ -191,15 +199,21 @@ def run(args, scene, mask):
     from s1s2_torch.models.weights import params_from_numpy
     from s1s2_torch.train.checkpoint import load_params
 
+    mesh = None
     if args.mesh_data:
-        raise NotImplementedError("infer_scene --mesh_data (tile batches sharded over "
-                                  "devices) is not ported yet: ROADMAP §1 item 7")
+        from s1s2_torch.parallel.mesh import (backend_for, initialize_distributed,
+                                              require_world, shard_predict_batch)
+
+        initialize_distributed(backend=backend_for(args.device))
+        mesh = require_world(args.mesh_data)
     device = torch.device(args.device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     state = {k: v.to(device) for k, v in params_from_numpy(load_params(args.ckpt)).items()}
     qp = calibrate_on_scene(args, state, scene, mask, device) if args.int8 else None
     predict = make_predictor(args, state, device, qp)
+    if mesh is not None:
+        predict = shard_predict_batch(predict, mesh)
     fast = dict(noise="device", transfer_dtype=np.float16, pipeline=3) \
         if args.fast_transfer else {}
     with torch.no_grad():
@@ -213,13 +227,16 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     from s1s2_torch.viz.render import save_rgb_triplet
 
+    from s1s2_torch.parallel.mesh import is_writer
+
     scene, mask = read_scene(args)
     out = run(args, scene, mask)
-    os.makedirs(args.out_dir, exist_ok=True)
-    np.save(os.path.join(args.out_dir, "scene_pred.npy"), np.transpose(out, (2, 0, 1)))
-    if args.out_ch >= 4:
-        save_rgb_triplet(out, os.path.join(args.out_dir, "scene_true.png"),
-                         os.path.join(args.out_dir, "scene_cir.png"))
+    if is_writer():
+        os.makedirs(args.out_dir, exist_ok=True)
+        np.save(os.path.join(args.out_dir, "scene_pred.npy"), np.transpose(out, (2, 0, 1)))
+        if args.out_ch >= 4:
+            save_rgb_triplet(out, os.path.join(args.out_dir, "scene_true.png"),
+                             os.path.join(args.out_dir, "scene_cir.png"))
     res = {"out": args.out_dir, "shape": list(out.shape), "tiles": "feather-stitched"}
     print(json.dumps(res), flush=True)
     return res

@@ -5,10 +5,14 @@
         --pred_param v --epochs 40 [--device cpu]
 
 The port of the JAX package's ``cli/train.py``: every flag and default of
-its parser, plus ``--device`` (the card by default). The multi-process
-flags (``--coordinator``, ``--num_processes``, ``--process_id``) and the
-mesh flags (``--spatial_shard``, ``--model_shard`` > 1) raise: ROADMAP §1
-item 7 (7c) ports them. One JSON line is printed per progress record.
+its parser, plus ``--device`` (the card by default). One process runs on
+each device: ``--coordinator``/``--num_processes``/``--process_id``, or
+torchrun's environment (``python -m torch.distributed.run --nproc_per_node
+N -m s1s2_torch train ...``), bring up the process group (NCCL on the card,
+Gloo with ``--device cpu``), and the step runs on the mesh of
+``train/trainer.py`` (``--spatial_shard`` splits H over 2 ranks,
+``--model_shard M`` the channels over M). One JSON line is printed per
+progress record, on every rank.
 """
 
 import argparse
@@ -70,12 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cache_dir", type=str, default=None,
                     help="decompress the npz dataset ONCE into mmap'd .npy files here")
     ap.add_argument("--spatial_shard", action="store_true",
-                    help="not ported (ROADMAP §1 item 7)")
+                    help="shard image rows over a 2-rank space axis")
     ap.add_argument("--model_shard", type=int, default=1,
-                    help="values above 1 are not ported (ROADMAP §1 item 7)")
+                    help="tensor-parallel: shard conv output channels over this many ranks")
     ap.add_argument("--log_every", type=int, default=50)
     ap.add_argument("--coordinator", type=str, default=None,
-                    help="multi-process training: not ported (ROADMAP §1 item 7)")
+                    help="host:port of process 0 (brings up torch.distributed)")
     ap.add_argument("--num_processes", type=int, default=None)
     ap.add_argument("--process_id", type=int, default=None)
     ap.add_argument("--device", default="cuda",
@@ -85,9 +89,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if any(v is not None for v in (args.coordinator, args.num_processes, args.process_id)):
-        raise NotImplementedError("multi-process training (--coordinator, --num_processes, "
-                                  "--process_id) is not ported yet (ROADMAP §1 item 7, 7c)")
+    from s1s2_torch.parallel.mesh import backend_for, initialize_distributed
+
+    initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                           backend=backend_for(args.device))
     from s1s2_torch.train.loop import TrainConfig
     from s1s2_torch.train.trainer import RunConfig, train_loop
 

@@ -93,8 +93,10 @@ def batch_iterator(ds, batch_size: int, *, shuffle: bool = True, drop_last: bool
     ``batch_size`` is the global batch: every process shuffles alike and
     assembles its contiguous 1/``process_count`` slice of each global batch
     (with more than one process, ragged tails are dropped so every process
-    sees the same number of batches). One batch is assembled ahead on a
-    worker thread."""
+    sees the same number of batches). On a device mesh they are the rank's
+    data coordinate and the data axis's size: ranks that differ only in
+    their space or model coordinate take the same rows. One batch is
+    assembled ahead on a worker thread."""
     if batch_size % process_count:
         raise ValueError(f"global batch {batch_size} not divisible by {process_count} processes")
     local = batch_size // process_count

@@ -19,8 +19,16 @@ Modes (:data:`MODES`): ``ddim``, ``ddim_sweep``, ``eps``, ``vdiag``,
 ``onestep``, ``limitation``, ``baseline_bicubic``, ``baseline_linear``,
 ``cfg_sweep``, and the panel modes ``night_demo`` and ``cloudy_viz``;
 ``tsweep`` and ``cfg_sweep`` write comparison panels as their previews
-(``viz/render.save_panel``). ``--mesh_data`` is ROADMAP §1 item 7c and
-raises ``NotImplementedError``.
+(``viz/render.save_panel``).
+
+``--mesh_data N`` runs on a data mesh of N processes, one per device
+(``parallel/mesh.py``; launched by ``python -m torch.distributed.run
+--nproc_per_node N -m s1s2_torch evaluate ...``, NCCL on the card, Gloo with
+``--device cpu``): the batch must divide by N, and where the JAX harness
+shards its samplers (``EvalContext.shard_call``: the DDIM/DPM samplers and
+the one-step sampler) each rank samples its rows of the batch and every rank
+gathers the whole batch, so every rank runs the same loop; rank 0 alone
+writes files.
 """
 
 from __future__ import annotations
@@ -50,6 +58,8 @@ from s1s2_torch.models.quant import (load_quant, make_cfg_rollout_calib,
                                      make_sampler_calib, quantize_unet)
 from s1s2_torch.models.unet import init_params, load_unet
 from s1s2_torch.models.weights import params_from_numpy
+from s1s2_torch.parallel.mesh import (backend_for, initialize_distributed, is_writer,
+                                      require_world)
 from s1s2_torch.sampling.dpm_solver import dpm_solver_2m
 from s1s2_torch.sampling.grids import full_range_grid, round_unique_grid
 from s1s2_torch.sampling.samplers import (_ddim_linspace_scan, ddim_anchored,
@@ -68,9 +78,6 @@ ETA_SALT = 7000
 # noise at PARTIAL_SALT + k
 LIMITATION_SALT = 300
 PARTIAL_SALT = 310
-
-NOT_PORTED = "is not ported yet (ROADMAP §1 item 7)"
-
 
 @dataclasses.dataclass
 class EvalConfig:
@@ -138,10 +145,22 @@ def stable_file_id(name: str) -> int:
     return zlib.crc32(name.encode("utf-8")) & 0xFFFFFFFF
 
 
-def check_ported(cfg: EvalConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not have yet."""
-    if cfg.mesh_data:
-        raise NotImplementedError(f"--mesh_data (torch.distributed) {NOT_PORTED}")
+def eval_mesh(cfg: EvalConfig):
+    """``--mesh_data``'s data mesh (None without it): the batch must divide
+    by N, and the world must be N processes (torchrun's environment)."""
+    if not cfg.mesh_data:
+        return None
+    if cfg.batch_size % cfg.mesh_data:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
+                         f"mesh_data {cfg.mesh_data}")
+    initialize_distributed(backend=backend_for(cfg.device))
+    return require_world(cfg.mesh_data)
+
+
+def _viz(save, *args, **kw) -> None:
+    """A file writer of the modes, called on rank 0 only."""
+    if is_writer():
+        save(*args, **kw)
 
 
 class EvalContext:
@@ -149,12 +168,12 @@ class EvalContext:
     per-file noise."""
 
     def __init__(self, cfg: EvalConfig):
-        check_ported(cfg)
+        self.mesh = eval_mesh(cfg)
         self.cfg = cfg
         self.device = torch.device(cfg.device)
-        os.makedirs(cfg.out_dir, exist_ok=True)
         self.viz_dir = os.path.join(cfg.out_dir, "previews")
-        os.makedirs(self.viz_dir, exist_ok=True)
+        if is_writer():
+            os.makedirs(self.viz_dir, exist_ok=True)
         self.ds = NpzPatchDataset(cfg.patch_dir,
                                   max_files=cfg.max_files if cfg.max_files > 0 else None)
         if cfg.file_list:
@@ -256,6 +275,26 @@ class EvalContext:
             return make_cfg_denoise_fn(self.model, cond, g)
         return make_denoise_fn(self.model, cond)
 
+    def shard_call(self, sampler):
+        """``sampler`` over the eval mesh: every argument is batch-major
+        (cond, gt, noise, η keys); each rank runs the sampler on its rows of
+        each and gathers the whole batch's output. Identity without a
+        mesh."""
+        mesh = self.mesh
+        if mesh is None:
+            return sampler
+
+        def wrapped(*args):
+            B = args[0].shape[0]
+            for a in args:
+                if a.shape[0] != B:
+                    raise ValueError(f"shard_call: an argument of shape {tuple(a.shape)} "
+                                     f"does not lead with the batch {B}")
+            rows = mesh.rows(B)
+            return mesh.all_gather(sampler(*(a[rows] for a in args)), ("data",))
+
+        return wrapped
+
     def tensors(self, *arrays: np.ndarray) -> List[torch.Tensor]:
         """Host batches as tensors on the context's device."""
         return [torch.from_numpy(np.asarray(a)).to(self.device) for a in arrays]
@@ -294,6 +333,8 @@ class EvalContext:
 
 
 def _write_csv(path: str, header: List[str], rows: List[List]) -> None:
+    if not is_writer():
+        return
     with open(path, "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(header)
@@ -306,6 +347,8 @@ def _mstd(a: Sequence[float]) -> Tuple[float, float]:
 
 
 def _summary(path: str, lines: List[str]) -> None:
+    if not is_writer():
+        return
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
 
@@ -370,12 +413,12 @@ def _make_recon_sampler(ctx: EvalContext, t_start: Optional[int] = None,
                 ab = float(sched.alpha_bar_np()[K])
                 x_init = noise * float(np.sqrt(1.0 - ab))
             return dpm_solver_2m(ctx.denoise_fn(cond), x_init, sched, grid, ctx.param)
-        return sample
+        return ctx.shard_call(sample)
 
     if ctx.param is Parameterization.EPS:
         def sample(cond, gt, noise, eta_keys):
             return ddim_anchored(ctx.denoise_fn(cond), gt, sched, t_start, steps, noise=noise)
-        return sample
+        return ctx.shard_call(sample)
 
     grid = round_unique_grid(t_start, steps, cfg.T)
     scale = _v_init_scale(ctx, t_start)
@@ -383,7 +426,7 @@ def _make_recon_sampler(ctx: EvalContext, t_start: Optional[int] = None,
     def sample(cond, gt, noise, eta_keys):
         return ddim_grid_sample(ctx.denoise_fn(cond), noise * scale, sched, grid,
                                 Parameterization.V, eta=cfg.eta, key=eta_keys)
-    return sample
+    return ctx.shard_call(sample)
 
 
 def _one_step_sampler(ctx: EvalContext, t_small: Optional[int] = None):
@@ -392,7 +435,7 @@ def _one_step_sampler(ctx: EvalContext, t_small: Optional[int] = None):
     def sample(cond, gt, noise):
         return one_step_recon(ctx.denoise_fn(cond), gt, ctx.schedule, t_small, ctx.param,
                               noise=noise)
-    return sample
+    return ctx.shard_call(sample)
 
 
 # ---------------------------------------------------------------------------
@@ -433,9 +476,9 @@ def run_ddim(ctx: EvalContext) -> Dict:
                 row += [f"{p_b[j]:.3f}", f"{s_b[j]:.4f}", f"{e_b[j]:.2f}"]
             rows.append(row)
             if saved < cfg.save_viz_n:
-                V.save_rgb_triplet(x0_np[j],
-                                   os.path.join(ctx.viz_dir, f"{saved:03d}_ddim_pred_true.png"),
-                                   os.path.join(ctx.viz_dir, f"{saved:03d}_ddim_pred_cir.png"))
+                _viz(V.save_rgb_triplet, x0_np[j],
+                     os.path.join(ctx.viz_dir, f"{saved:03d}_ddim_pred_true.png"),
+                     os.path.join(ctx.viz_dir, f"{saved:03d}_ddim_pred_cir.png"))
                 saved += 1
 
     header = ["file", "t_start", "ddim_steps", "MAE", "MSE"]
@@ -614,9 +657,9 @@ def run_per_band(ctx: EvalContext) -> Dict:
                     (float(mae_b[j]), float(mse_b[j]), float(ps[j]), float(ss[j])))
             rows.append(row)
             if saved < cfg.save_viz_n:
-                V.save_rgb_triplet(x0_np[j],
-                                   os.path.join(ctx.viz_dir, f"{saved:03d}_pb_pred_true.png"),
-                                   os.path.join(ctx.viz_dir, f"{saved:03d}_pb_pred_cir.png"))
+                _viz(V.save_rgb_triplet, x0_np[j],
+                     os.path.join(ctx.viz_dir, f"{saved:03d}_pb_pred_true.png"),
+                     os.path.join(ctx.viz_dir, f"{saved:03d}_pb_pred_cir.png"))
                 saved += 1
     hdr = ["file"]
     for b in range(ctx.Ct):
@@ -710,9 +753,9 @@ def run_tsweep(ctx: EvalContext) -> Dict:
         if n_viz > 0:
             mid = _np(outs[mid_t])[0]
             for j in range(n_viz):
-                V.save_panel(mid[j], gt[j], cond[j],
-                             os.path.join(ctx.viz_dir, f"{saved:03d}_tsweep_t{mid_t}.png"),
-                             title=f"t-sweep middle t={mid_t}")
+                _viz(V.save_panel, mid[j], gt[j], cond[j],
+                     os.path.join(ctx.viz_dir, f"{saved:03d}_tsweep_t{mid_t}.png"),
+                     title=f"t-sweep middle t={mid_t}")
                 saved += 1
     _write_csv(os.path.join(cfg.out_dir, "tsweep.csv"), ["file", "t", "MAE", "MSE"], rows)
     return {t: float(np.mean(v)) for t, v in results.items()}
@@ -807,15 +850,15 @@ def run_onestep(ctx: EvalContext) -> Dict:
     mse = float(M.masked_mse(x0, gt_t, mask_t))
 
     x0_first = _np(x0[0])[0]
-    V.save_rgb_triplet(gt[0], os.path.join(cfg.out_dir, "gt_true.png"),
-                       os.path.join(cfg.out_dir, "gt_cir.png"))
-    V.save_rgb_triplet(x0_first, os.path.join(cfg.out_dir, "pred_true.png"),
-                       os.path.join(cfg.out_dir, "pred_cir.png"))
+    _viz(V.save_rgb_triplet, gt[0], os.path.join(cfg.out_dir, "gt_true.png"),
+         os.path.join(cfg.out_dir, "gt_cir.png"))
+    _viz(V.save_rgb_triplet, x0_first, os.path.join(cfg.out_dir, "pred_true.png"),
+         os.path.join(cfg.out_dir, "pred_cir.png"))
     if ctx.param is Parameterization.V:
         lo, hi = V.per_image_lo_hi(gt[0])
         tr, ci = V.fixed_true_cir(x0_first, lo, hi)
-        V.write_png(os.path.join(cfg.out_dir, "pred_true_fixed.png"), tr)
-        V.write_png(os.path.join(cfg.out_dir, "pred_cir_fixed.png"), ci)
+        _viz(V.write_png, os.path.join(cfg.out_dir, "pred_true_fixed.png"), tr)
+        _viz(V.write_png, os.path.join(cfg.out_dir, "pred_cir_fixed.png"), ci)
 
     _summary(os.path.join(cfg.out_dir, "onestep_summary.txt"), [
         f"[t=0 identity] MAE={mae0:.6f}  MSE={mse0:.6f}  (should be ~0.0)",
@@ -901,15 +944,16 @@ def run_limitation(ctx: EvalContext) -> Dict:
             if viz_lo is not None:
                 pt, pc = V.fixed_true_cir(x0_np[j], viz_lo, viz_hi)
                 gtt, gtc = V.fixed_true_cir(gt[j], viz_lo, viz_hi)
-                V.write_png(os.path.join(cfg.out_dir, f"{stem}_compare_true.png"),
-                            V.hstack_compare(pt, gtt))
-                V.write_png(os.path.join(cfg.out_dir, f"{stem}_compare_cir.png"),
-                            V.hstack_compare(pc, gtc))
+                _viz(V.write_png, os.path.join(cfg.out_dir, f"{stem}_compare_true.png"),
+                     V.hstack_compare(pt, gtt))
+                _viz(V.write_png, os.path.join(cfg.out_dir, f"{stem}_compare_cir.png"),
+                     V.hstack_compare(pc, gtc))
             else:
-                V.save_pred_gt(x0_np[j], gt[j], cfg.out_dir, stem)
-            np.save(os.path.join(cfg.out_dir, f"{stem}_pred.npy"),
-                    np.transpose(x0_np[j], (2, 0, 1)))
-            np.save(os.path.join(cfg.out_dir, f"{stem}_gt.npy"), np.transpose(gt[j], (2, 0, 1)))
+                _viz(V.save_pred_gt, x0_np[j], gt[j], cfg.out_dir, stem)
+            _viz(np.save, os.path.join(cfg.out_dir, f"{stem}_pred.npy"),
+                 np.transpose(x0_np[j], (2, 0, 1)))
+            _viz(np.save, os.path.join(cfg.out_dir, f"{stem}_gt.npy"),
+                 np.transpose(gt[j], (2, 0, 1)))
             saved += 1
 
     result = {}
@@ -1024,11 +1068,11 @@ def run_cfg_sweep(ctx: EvalContext) -> Dict:
             if n_viz > 0:
                 x0_np = _np(x0)[0]
                 for j in range(n_viz):
-                    V.save_panel(x0_np[j], gt[j], cond[j],
-                                 os.path.join(ctx.viz_dir,
-                                              f"cfg_g{g:g}_{os.path.splitext(names[j])[0]}.png"),
-                                 title=f"CFG g={g:g}  t_start={cfg.t_start} "
-                                       f"steps={cfg.ddim_steps}  {names[j]}")
+                    _viz(V.save_panel, x0_np[j], gt[j], cond[j],
+                         os.path.join(ctx.viz_dir,
+                                      f"cfg_g{g:g}_{os.path.splitext(names[j])[0]}.png"),
+                         title=f"CFG g={g:g}  t_start={cfg.t_start} "
+                               f"steps={cfg.ddim_steps}  {names[j]}")
                 viz_left -= n_viz
             mae_b, mse_b = _np(*M.per_file_mae_mse(x0, gt_t, mask_t))
             maes += list(mae_b[:n_valid])
@@ -1061,9 +1105,9 @@ def run_night_demo(ctx: EvalContext) -> Dict:
         for j in range(n_valid):
             if n >= max(1, cfg.save_viz_n):
                 return {"panels": n}
-            V.save_panel(x0_np[j], None, cond[j],
-                         os.path.join(ctx.viz_dir, f"{n:03d}_night_panel.png"),
-                         title=f"Night demo: {names[j]}")
+            _viz(V.save_panel, x0_np[j], None, cond[j],
+                 os.path.join(ctx.viz_dir, f"{n:03d}_night_panel.png"),
+                 title=f"Night demo: {names[j]}")
             n += 1
     return {"panels": n}
 
@@ -1097,9 +1141,9 @@ def run_cloudy_viz(ctx: EvalContext) -> Dict:
         x0 = _np(sampler(cond_t, gt_t, ctx.per_file_noise(idxs),
                          ctx.per_file_keys(idxs, salt=ETA_SALT)))[0]
         for j, (_, fname, _) in enumerate(chunk):
-            V.save_panel(x0[j], items[j]["target"], items[j]["cond"],
-                         os.path.join(ctx.viz_dir, f"{n:03d}_cloudy_panel.png"),
-                         title=f"Cloudy case: {fname}", zoom=cfg.zoom, zoom_k=cfg.zoom_k)
+            _viz(V.save_panel, x0[j], items[j]["target"], items[j]["cond"],
+                 os.path.join(ctx.viz_dir, f"{n:03d}_cloudy_panel.png"),
+                 title=f"Cloudy case: {fname}", zoom=cfg.zoom, zoom_k=cfg.zoom_k)
             n += 1
     return {"panels": len(selected)}
 

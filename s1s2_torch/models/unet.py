@@ -22,6 +22,16 @@ instead of the kernel, which has no backward, and the pools through
 (``torch.utils.checkpoint``), as the JAX model's ``nn.remat`` does. The
 parameters stay ``requires_grad=False``: a trainer differentiates its own
 copy (``train/loop.py``, through ``torch.func.functional_call``).
+
+``UNetSmall(mesh=...)`` is this rank's part of the model on a device mesh
+(``parallel/mesh.py``). On the model axis each layer whose output channels
+divide it holds its slice of them (the registered parameters have the
+slice's shape) and gathers the full output (``parallel/comm.gather_channels``);
+the other layers run whole on every rank. On the space axis (the training
+path only) the input holds this rank's rows of H, each 3×3 conv reads one
+halo row from each neighbour (``parallel/comm.halo_rows``), and the pools,
+the space-to-depth stem, the 2×2 up-convs and the 1×1 head stay local, so
+the local height must divide by 8·``stem_s2d``.
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ from s1s2_torch.core import random
 from s1s2_torch.ops.conv3x3 import K_MULT, conv3x3_relu, conv3x3_relu_train
 from s1s2_torch.ops.pixel_shuffle import (depth_to_space, ps_conv_transpose_2x2,
                                           space_to_depth)
+from s1s2_torch.parallel.comm import gather_channels, halo_rows
+from s1s2_torch.parallel.mesh import tp_sharded
 
 BLOCKS = ("down1", "down2", "down3", "conv3", "conv2", "conv1")
 UPS = ("up3", "up2", "up1")
@@ -102,98 +114,131 @@ def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return c
 
 
+def sharded_out(co: int, mesh) -> bool:
+    """Whether a layer of ``co`` output channels keeps a slice of them on
+    ``mesh``'s model axis (the rule of ``parallel/mesh.tp_sharded``)."""
+    return mesh is not None and tp_sharded((co,), mesh.model)
+
+
 def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-            autograd: bool, padded_input: bool = False) -> torch.Tensor:
+            autograd: bool, padded_input: bool = False, mesh=None,
+            sharded: bool = False) -> torch.Tensor:
     if autograd:
-        return conv3x3_relu_train(x, kernel, bias)
-    # the bias rounds to the compute dtype first, as flax's nn.Conv does
-    return conv3x3_relu(x, cast_param(kernel, x.dtype), bias.to(x.dtype).float(),
-                        padded_input=padded_input)
+        if mesh is not None and mesh.space > 1:
+            y = conv3x3_relu_train(halo_rows(x, mesh), kernel, bias, pad_rows=False)
+        else:
+            y = conv3x3_relu_train(x, kernel, bias)
+    else:
+        # the bias rounds to the compute dtype first, as flax's nn.Conv does
+        y = conv3x3_relu(x, cast_param(kernel, x.dtype), bias.to(x.dtype).float(),
+                         padded_input=padded_input)
+    return gather_channels(y, mesh) if sharded else y
 
 
-def double_conv(x, k1, b1, k2, b2, autograd: bool) -> torch.Tensor:
-    return conv3x3(conv3x3(x, k1, b1, autograd), k2, b2, autograd)
+def double_conv(x, k1, b1, k2, b2, autograd: bool, mesh=None,
+                sharded=(False, False)) -> torch.Tensor:
+    y = conv3x3(x, k1, b1, autograd, mesh=mesh, sharded=sharded[0])
+    return conv3x3(y, k2, b2, autograd, mesh=mesh, sharded=sharded[1])
 
 
 class Conv3x3(nn.Module):
-    def __init__(self, ci: int, co: int, autograd: bool = False):
+    def __init__(self, ci: int, co: int, autograd: bool = False, mesh=None):
         super().__init__()
+        self.sharded = sharded_out(co, mesh)
+        co = co // mesh.model if self.sharded else co
         self.kernel = _param(3, 3, ci, co)
         self.bias = _param(co)
-        self.autograd = autograd
+        self.autograd, self.mesh = autograd, mesh
 
     def forward(self, x: torch.Tensor, padded_input: bool = False) -> torch.Tensor:
-        return conv3x3(x, self.kernel, self.bias, self.autograd, padded_input)
+        return conv3x3(x, self.kernel, self.bias, self.autograd, padded_input, self.mesh,
+                       self.sharded)
 
 
 class DoubleConv(nn.Module):
-    def __init__(self, ci: int, co: int, autograd: bool = False, remat: bool = False):
+    def __init__(self, ci: int, co: int, autograd: bool = False, remat: bool = False,
+                 mesh=None):
         super().__init__()
-        self.conv1 = Conv3x3(ci, co, autograd)
-        self.conv2 = Conv3x3(co, co, autograd)
-        self.autograd, self.remat = autograd, remat
+        self.conv1 = Conv3x3(ci, co, autograd, mesh)
+        self.conv2 = Conv3x3(co, co, autograd, mesh)
+        self.autograd, self.remat, self.mesh = autograd, remat, mesh
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ps = (self.conv1.kernel, self.conv1.bias, self.conv2.kernel, self.conv2.bias)
+        flags = (self.autograd, self.mesh, (self.conv1.sharded, self.conv2.sharded))
         if self.remat and torch.is_grad_enabled():
             # the parameters go in as arguments, so the recomputation reads the
             # tensors this forward read (functional_call restores the module's
             # own before the backward runs)
-            return checkpoint(double_conv, x, *ps, self.autograd, use_reentrant=False,
+            return checkpoint(double_conv, x, *ps, *flags, use_reentrant=False,
                               preserve_rng_state=False)
-        return double_conv(x, *ps, self.autograd)
+        return double_conv(x, *ps, *flags)
 
 
 class UpPS(nn.Module):
-    def __init__(self, ci: int, co: int):
+    def __init__(self, ci: int, co: int, mesh=None):
         super().__init__()
+        self.sharded, self.mesh = sharded_out(co, mesh), mesh
+        co = co // mesh.model if self.sharded else co
         self.kernel = _param(2, 2, ci, co)
         self.bias = _param(co)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ps_conv_transpose_2x2(x, self.kernel, self.bias)
+        y = ps_conv_transpose_2x2(x, self.kernel, self.bias)
+        return gather_channels(y, self.mesh) if self.sharded else y
 
 
 class Conv1x1(nn.Module):
-    def __init__(self, ci: int, co: int):
+    def __init__(self, ci: int, co: int, mesh=None):
         super().__init__()
+        self.sharded, self.mesh = sharded_out(co, mesh), mesh
+        co = co // mesh.model if self.sharded else co
         self.kernel = _param(1, 1, ci, co)
         self.bias = _param(co)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv1x1(x, self.kernel, self.bias)
+        y = conv1x1(x, self.kernel, self.bias)
+        return gather_channels(y, self.mesh) if self.sharded else y
 
 
 class UNetSmall(nn.Module):
     """``forward(x_and_cond (B,H,W,C_xt+C_cond), t_idx (B,)) → (B,H,W,out_ch)``
     float32. ``in_ch`` counts the x_t and cond channels together.
     ``autograd`` selects the training path and ``remat`` its recomputed
-    blocks (module docstring); both are off for inference."""
+    blocks (module docstring); both are off for inference. ``mesh`` makes
+    it this rank's part of the model on a device mesh (module docstring)."""
 
     def __init__(self, out_ch: int = 4, base_ch: int = 96, stem_s2d: int = 1,
                  in_ch: int = 8, compute_dtype: torch.dtype = torch.bfloat16,
-                 autograd: bool = False, remat: bool = False):
+                 autograd: bool = False, remat: bool = False, mesh=None):
         super().__init__()
         if remat and not autograd:
             raise ValueError("remat recomputes the training path: it needs autograd=True")
+        if mesh is not None and mesh.space > 1 and not autograd:
+            raise ValueError("the space axis shards the training path (autograd=True) only")
         b, s = base_ch, stem_s2d
         self.out_ch, self.base_ch, self.stem_s2d, self.in_ch = out_ch, base_ch, stem_s2d, in_ch
-        self.compute_dtype, self.autograd = compute_dtype, autograd
-        blk = lambda ci, co: DoubleConv(ci, co, autograd, remat)  # noqa: E731
-        self.inc = Conv3x3(in_ch * s * s + 1, b, autograd)
+        self.compute_dtype, self.autograd, self.mesh = compute_dtype, autograd, mesh
+        blk = lambda ci, co: DoubleConv(ci, co, autograd, remat, mesh)  # noqa: E731
+        self.inc = Conv3x3(in_ch * s * s + 1, b, autograd, mesh)
         self.down1 = blk(b, 2 * b)
         self.down2 = blk(2 * b, 4 * b)
         self.down3 = blk(4 * b, 8 * b)
-        self.up3 = UpPS(8 * b, 4 * b)
+        self.up3 = UpPS(8 * b, 4 * b, mesh)
         self.conv3 = blk(8 * b, 4 * b)
-        self.up2 = UpPS(4 * b, 2 * b)
+        self.up2 = UpPS(4 * b, 2 * b, mesh)
         self.conv2 = blk(4 * b, 2 * b)
-        self.up1 = UpPS(2 * b, b)
+        self.up1 = UpPS(2 * b, b, mesh)
         self.conv1 = blk(2 * b, b)
-        self.outc = Conv1x1(b, out_ch * s * s)
+        self.outc = Conv1x1(b, out_ch * s * s, mesh)
 
     def forward(self, x_and_cond: torch.Tensor, t_idx: torch.Tensor) -> torch.Tensor:
         s = self.stem_s2d
+        if self.mesh is not None and self.mesh.space > 1 and x_and_cond.shape[1] % (8 * s):
+            raise ValueError(
+                f"input {tuple(x_and_cond.shape)}: this rank's {x_and_cond.shape[1]} rows "
+                f"of H must divide by 8*stem_s2d = {8 * s} (three pools after the stem) "
+                f"on a space axis of {self.mesh.space}")
         pool = max_pool2_train if self.autograd else max_pool2
         pad = not self.autograd  # the kernel's stem input; autograd's conv takes it as it is
         x = input_map(x_and_cond, t_idx, s, self.compute_dtype, pad=pad)
@@ -213,9 +258,12 @@ class UNetSmall(nn.Module):
 def load_unet(state: Dict[str, torch.Tensor], out_ch: int = 4, base_ch: int = 96,
               stem_s2d: int = 1, in_ch: int = 8,
               compute_dtype: torch.dtype = torch.bfloat16,
-              device="cuda") -> UNetSmall:
-    """A UNetSmall holding ``state`` (see ``weights.params_from_numpy``)."""
-    model = UNetSmall(out_ch, base_ch, stem_s2d, in_ch, compute_dtype)
+              device="cuda", mesh=None) -> UNetSmall:
+    """A UNetSmall holding ``state`` (see ``weights.params_from_numpy``);
+    on a ``mesh`` with a model axis, this rank's slices of it."""
+    model = UNetSmall(out_ch, base_ch, stem_s2d, in_ch, compute_dtype, mesh=mesh)
+    if mesh is not None:
+        state = {k: mesh.param_slice(v) for k, v in state.items()}
     model.load_state_dict(state, strict=True)
     return model.to(device)
 

@@ -104,38 +104,44 @@ def conv3x3_relu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 class _ConvF32(torch.autograd.Function):
-    """``F.conv2d`` (3×3, SAME, NCHW/OIHW) whose forward and backward both
-    run with TF32 off, whatever the caller's flags: autograd runs the
-    backward after the forward's context has closed."""
+    """``F.conv2d`` (3×3, NCHW/OIHW, ``padding`` (rows, columns)) whose
+    forward and backward both run with TF32 off, whatever the caller's
+    flags: autograd runs the backward after the forward's context has
+    closed."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, padding):
         ctx.save_for_backward(x, w)
+        ctx.padding = padding
         with _no_tf32():
-            return F.conv2d(x, w, padding=1)
+            return F.conv2d(x, w, padding=padding)
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
         with _no_tf32():
             gx, gw, _ = torch.ops.aten.convolution_backward(
-                gy, x, w, None, (1, 1), (1, 1), (1, 1), False, (0, 0), 1,
+                gy, x, w, None, (1, 1), ctx.padding, (1, 1), False, (0, 0), 1,
                 (ctx.needs_input_grad[0], ctx.needs_input_grad[1], False))
-        return gx, gw
+        return gx, gw, None
 
 
-def conv3x3_relu_train(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def conv3x3_relu_train(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       pad_rows: bool = True) -> torch.Tensor:
     """The training path's conv, differentiable: ``F.conv2d`` in x's dtype
     (cuDNN on the card; in f32 kept off TF32, forward and backward, as the
     JAX package's f32 conv is f32), then the bias add in x's dtype, as
     flax's ``nn.Conv`` adds it after the conv has rounded, then ReLU. ``w``
     and ``b`` are the f32 parameters, cast inside the graph so that their
-    gradients come back in f32. NHWC in, NHWC out."""
+    gradients come back in f32. NHWC in, NHWC out. ``pad_rows=False`` pads
+    W only: x then carries its halo rows (``parallel/comm.halo_rows``) and
+    the output has two rows fewer."""
     xn, wn = _nchw(x), _oihw(w.to(x.dtype))
+    padding = (1, 1) if pad_rows else (0, 1)
     if x.dtype == torch.float32 and x.is_cuda:
-        y = _ConvF32.apply(xn, wn)
+        y = _ConvF32.apply(xn, wn, padding)
     else:
-        y = F.conv2d(xn, wn, padding=1)
+        y = F.conv2d(xn, wn, padding=padding)
     return torch.relu(y.permute(0, 2, 3, 1) + b.to(x.dtype))
 
 

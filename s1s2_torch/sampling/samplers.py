@@ -184,7 +184,8 @@ def ddim_grid_sample(denoise_fn: DenoiseFn, x_init: torch.Tensor, schedule: Sche
                      return_traj: bool = False,
                      noise: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None,
-                     key: Optional[np.ndarray] = None):
+                     key: Optional[np.ndarray] = None,
+                     batch_rows: Optional[Tuple[slice, int]] = None):
     """Descending sweep over an ascending unique grid; at the lowest grid
     point x_t ← x0̂. Returns that final array, clamped, or with
     ``return_traj=True`` the pair ``(x0, (t_cur, traj))`` of per-step int32
@@ -197,7 +198,10 @@ def ddim_grid_sample(denoise_fn: DenoiseFn, x_init: torch.Tensor, schedule: Sche
     into one key per step, each drawing the whole (B,H,W,C) batch, and a
     (B, 2) batch of per-file keys is split per file, so file b's step-i
     draw is ``normal(split(key[b], n)[i], (H,W,C))`` whatever the batch
-    holds; else from ``generator`` on x_init's device.
+    holds; else from ``generator`` on x_init's device. ``batch_rows =
+    (rows, B)`` says that x_init holds the rows ``rows`` of a batch of B (a
+    device mesh's share): a (2,) key then draws the whole batch's shape and
+    takes those rows, so the draws are the whole batch's.
     """
     grid = np.asarray(grid, np.int64)
     n = len(grid)
@@ -239,7 +243,12 @@ def ddim_grid_sample(denoise_fn: DenoiseFn, x_init: torch.Tensor, schedule: Sche
                 z = noise[i].to(x_t.device, torch.float32)
             elif step_keys is not None:
                 shape = tuple(x_t.shape[1:]) if step_keys.ndim == 3 else tuple(x_t.shape)
-                z = torch.from_numpy(random.normal(step_keys[i], shape)).to(x_t.device)
+                if batch_rows is not None and step_keys.ndim == 2:
+                    shape = (batch_rows[1],) + shape[1:]
+                z = random.normal(step_keys[i], shape)
+                if batch_rows is not None and step_keys.ndim == 2:
+                    z = z[batch_rows[0]]
+                z = torch.from_numpy(np.ascontiguousarray(z)).to(x_t.device)
             else:
                 z = _randn(x_t.shape, generator, x_t.device)
             x_next = x_next + float(sig[i]) * z

@@ -363,9 +363,20 @@ def state_file(path: str) -> str:
     return os.path.join(path, STATE_FILE)
 
 
-def save_state(state, path: str) -> None:
+def save_state(state, path: str, mesh=None) -> None:
     """The resumable train state (``train/loop.TrainState``) into the
-    directory ``path``, replacing what was there."""
+    directory ``path``, replacing what was there. On a ``mesh`` every rank
+    enters: a model-sharded state is gathered whole, rank 0 writes, and all
+    wait for it at a barrier."""
+    if mesh is not None:
+        from s1s2_torch.parallel.mesh import is_writer
+        from s1s2_torch.train.loop import tp_gather_state
+
+        state = tp_gather_state(state, mesh)
+        if is_writer():
+            save_state(state, path)
+        mesh.barrier()
+        return
     L = state.layout
     tree = {"step": int(state.step), "skipped": state.skipped,
             "params": nest(L.unflatten(state.params)),

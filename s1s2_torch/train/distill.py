@@ -30,8 +30,15 @@ the card's generator on a card. The endpoint targets' noise
 No step reads a value back to the host. The epoch loops keep each epoch's sum
 of finite losses and their count on the device, and read them only when a
 progress record is due; ``debiased_ema`` reads ``step`` and ``skipped`` at
-the end and at each snapshot. The JAX functions' ``mesh`` (multi-chip) path
-is not ported.
+the end and at each snapshot.
+
+The steps run on a device mesh (``parallel/mesh.py``; ``mesh``, by default
+the 1×1×1 ``local_mesh()``) over its data axis, as the train step does
+(``train/loop.py``): a rank takes its rows of each global
+batch, the step draws for the global batch and takes the rank's block, the
+losses are the global batch's (``parallel/comm.psum``), and the gradient is
+summed over the ranks. The endpoint targets are rolled by the ranks in turn,
+a chunk each per round, and gathered on every rank.
 """
 
 from __future__ import annotations
@@ -49,13 +56,14 @@ from s1s2_torch.core.parametrize import (Parameterization, pred_to_x0_eps, q_sam
 from s1s2_torch.core.schedule import Schedule
 from s1s2_torch.models.unet import UNetSmall
 from s1s2_torch.sampling.grids import linspace_grid, round_unique_grid
+from s1s2_torch.parallel.comm import psum
+from s1s2_torch.parallel.mesh import local_mesh
 from s1s2_torch.train.loop import (Optimizer, ParamLayout, StepDraws, TrainConfig,
-                                   TrainState, create_train_state, guarded_update, upload)
+                                   TrainState, create_train_state, global_draws, guarded_update,
+                                   upload)
 from s1s2_torch.train.trainer import resolve_device
 
 Params = Dict[str, torch.Tensor]
-MESH_NOT_PORTED = ("a device mesh (multi-chip distillation) is not ported yet "
-                   "(ROADMAP §1 item 7, 7c)")
 
 
 # ---------------------------------------------------------------------------
@@ -214,10 +222,15 @@ class _LossSum:
         return float(self.total) / max(1, int(self.n))
 
 
-def _masks(mask: torch.Tensor, mask_as_weights: bool) -> torch.Tensor:
+def _masks(mask: torch.Tensor, mask_as_weights: bool, total) -> torch.Tensor:
+    """(B,H,W,1) pixel weights: the binarised mask, or with
+    ``mask_as_weights`` the mask over its mean (the global batch's through
+    ``total``, a sum over the mesh)."""
     m = mask[..., None].float()
     if mask_as_weights:
-        return m / torch.clamp(m.mean(), min=1e-6)
+        n = torch.full((), float(m.numel()), dtype=torch.float32, device=m.device)
+        m_sum, n = total(torch.stack([m.sum(), n]))
+        return m / torch.clamp(m_sum / n, min=1e-6)
     return (m > 0).float()
 
 
@@ -240,11 +253,12 @@ class DistillStep(StepDraws):
     ``eps_mse``, ``skipped``, tensors on the state's device."""
 
     def __init__(self, model: UNetSmall, schedule: Schedule, cfg: DistillConfig,
-                 student_steps: int, teacher_param: Optional[str] = None, draws: str = "auto"):
+                 student_steps: int, teacher_param: Optional[str] = None, draws: str = "auto",
+                 mesh=None):
         if not getattr(model, "autograd", False):
             raise ValueError("the student trains on UNetSmall(autograd=True)")
         super().__init__(draws)
-        self.model, self.cfg = model, cfg
+        self.model, self.cfg, self.mesh = model, cfg, mesh or local_mesh()
         self.opt = make_distill_optimizer(cfg)
         self.t_param = Parameterization(teacher_param or cfg.teacher_param)
         sg, tg = distill_grids(cfg.t_start, student_steps, cfg.T)
@@ -300,36 +314,41 @@ class DistillStep(StepDraws):
                                (torch.cat([x_t, cond], dim=-1), t_cur))
         x0_pred, eps_pred = pred_to_x0_eps(Parameterization.EPS, x_t, pred, sab_c, s1mab_c)
         w = torch.clamp(snr(ab_cur_tab[i]), min=1.0)  # (B,)
-        m = _masks(mask, self.cfg.mask_as_weights)  # (B,H,W,1)
+        total = lambda v: psum(v, self.mesh)  # noqa: E731
+        m = _masks(mask, self.cfg.mask_as_weights, total)  # (B,H,W,1)
         C = x0.shape[-1]
         err2 = m * (x0_pred - x0_tgt) ** 2
         denom = torch.clamp(m.sum(dim=(1, 2, 3)), min=1e-6) * C
-        loss = (w * (err2.sum(dim=(1, 2, 3)) / denom)).mean()
-        ch = err2.detach().sum(dim=(0, 1, 2)) / torch.clamp(m.sum(), min=1e-6)
-        eps_mse = (m * (eps_pred.detach() - eps_tgt) ** 2).sum() / torch.clamp(m.sum() * C,
-                                                                                 min=1e-6)
+        n = x0.shape[0] * self.mesh.data
+        loss = total((w * (err2.sum(dim=(1, 2, 3)) / denom)).sum()) / n
+        m_sum = total(m.sum())
+        ch = total(err2.detach().sum(dim=(0, 1, 2))) / torch.clamp(m_sum, min=1e-6)
+        eps_mse = total((m * (eps_pred.detach() - eps_tgt) ** 2).sum()) / torch.clamp(
+            m_sum * C, min=1e-6)
         grads, = torch.autograd.grad(loss, flat)
         return loss.detach(), ch, eps_mse, grads
 
     def __call__(self, state: TrainState, teacher, batch, key):
-        device = state.params.device
+        device, mesh = state.params.device, self.mesh
         cond, x0, mask = (upload(a, device).float() for a in batch)
-        i, noise = self.draw(key, state.step, x0.shape[0], x0.shape, device)
+        i, noise = global_draws(self.draw, key, state.step, x0.shape, device, mesh)
+        i, noise = i[mesh.rows(i.shape[0])], mesh.local(noise)
         loss, ch, eps_mse, grads = self.loss_and_grads(state.params, state.layout, teacher,
                                                        cond, x0, mask, i, noise)
         finite_in = torch.isfinite(cond).all() & torch.isfinite(x0).all()
         new_state, ok = guarded_update(state, self.opt, grads, loss, self.cfg.ema_decay,
-                                       inputs_finite=finite_in)
+                                       inputs_finite=finite_in, mesh=mesh)
         return new_state, {"loss": torch.where(ok, loss, torch.full_like(loss, float("nan"))),
                            "ch_losses": ch, "eps_mse": eps_mse, "skipped": new_state.skipped}
 
 
 def make_distill_step(model: UNetSmall, schedule: Schedule, cfg: DistillConfig,
                       student_steps: int, teacher_param: Optional[str] = None,
-                      draws: str = "auto") -> DistillStep:
+                      draws: str = "auto", mesh=None) -> DistillStep:
     """The progressive step of ``model`` (a ``UNetSmall(autograd=True)``);
-    see :class:`DistillStep` and the module docstring for ``draws``."""
-    return DistillStep(model, schedule, cfg, student_steps, teacher_param, draws)
+    see :class:`DistillStep` and the module docstring for ``draws`` and
+    ``mesh``."""
+    return DistillStep(model, schedule, cfg, student_steps, teacher_param, draws, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -356,10 +375,10 @@ class EndpointStep:
 
     def __init__(self, model: UNetSmall, schedule: Schedule, cfg: DistillConfig,
                  pure_noise_init: bool = False, spectral_w: float = 0.0,
-                 student_param: str = "eps"):
+                 student_param: str = "eps", mesh=None):
         if not getattr(model, "autograd", False):
             raise ValueError("the student trains on UNetSmall(autograd=True)")
-        self.model, self.cfg = model, cfg
+        self.model, self.cfg, self.mesh = model, cfg, mesh or local_mesh()
         self.pure_noise_init, self.spectral_w = pure_noise_init, float(spectral_w)
         self.opt = make_distill_optimizer(cfg)
         self.t_start = int(cfg.t_start)
@@ -385,9 +404,11 @@ class EndpointStep:
         pred = functional_call(self.model, layout.unflatten(flat),
                                (torch.cat([x_t, cond], dim=-1), t))
         pred_req = (x_t - g * x0_tgt) / s1mab if eps_head else (sab * x_t - x0_tgt) / s1mab
-        m = _masks(mask, self.cfg.mask_as_weights)
+        total = lambda v: psum(v, self.mesh)  # noqa: E731
+        m = _masks(mask, self.cfg.mask_as_weights, total)
         err2 = m * (pred - pred_req) ** 2
-        loss = err2.sum() / torch.clamp(m.sum() * x0.shape[-1], min=1e-6)
+        m_sum = total(m.sum())
+        loss = total(err2.sum()) / torch.clamp(m_sum * x0.shape[-1], min=1e-6)
         if self.spectral_w > 0.0:
             x0_pred = (x_t - s1mab * pred) / g if eps_head else sab * x_t - s1mab * pred
             dot = (x0_pred * x0_tgt).sum(-1)
@@ -395,9 +416,9 @@ class EndpointStep:
                    * torch.clamp(torch.sqrt((x0_tgt ** 2).sum(-1)), min=1e-6))
             cos = torch.clamp(dot / nrm, -1.0, 1.0)
             mm = m[..., 0]
-            loss = loss + self.spectral_w * ((1.0 - cos) * mm).sum() / torch.clamp(
-                mm.sum(), min=1e-6)
-        ch = err2.detach().sum(dim=(0, 1, 2)) / torch.clamp(m.sum(), min=1e-6)
+            loss = loss + self.spectral_w * total(((1.0 - cos) * mm).sum()) / torch.clamp(
+                m_sum, min=1e-6)
+        ch = total(err2.detach().sum(dim=(0, 1, 2))) / torch.clamp(m_sum, min=1e-6)
         grads, = torch.autograd.grad(loss, flat)
         return loss.detach(), ch, grads
 
@@ -409,29 +430,36 @@ class EndpointStep:
         finite_in = (torch.isfinite(cond).all() & torch.isfinite(x0).all()
                      & torch.isfinite(x0_tgt).all())
         new_state, ok = guarded_update(state, self.opt, grads, loss, self.cfg.ema_decay,
-                                       inputs_finite=finite_in)
+                                       inputs_finite=finite_in, mesh=self.mesh)
         return new_state, {"loss": torch.where(ok, loss, torch.full_like(loss, float("nan"))),
                            "ch_losses": ch, "skipped": new_state.skipped}
 
 
 def make_endpoint_distill_step(model: UNetSmall, schedule: Schedule, cfg: DistillConfig,
                                pure_noise_init: bool = False, spectral_w: float = 0.0,
-                               student_param: str = "eps") -> EndpointStep:
+                               student_param: str = "eps", mesh=None) -> EndpointStep:
     """The endpoint step of ``model`` (a ``UNetSmall(autograd=True)``); see
-    :class:`EndpointStep`."""
-    return EndpointStep(model, schedule, cfg, pure_noise_init, spectral_w, student_param)
+    :class:`EndpointStep`. On ``mesh`` a batch is this rank's data rows."""
+    return EndpointStep(model, schedule, cfg, pure_noise_init, spectral_w, student_param,
+                        mesh)
 
 
 def endpoint_targets(teacher: UNetSmall, schedule: Schedule, cfg: DistillConfig,
                      cond: torch.Tensor, x0: torch.Tensor, teacher_steps: int, n_seeds: int,
                      teacher_param, seed: int, rollout_chunk: int = 32, mode: str = "anchored",
-                     guidance_scale: Optional[float] = None, host_store: bool = False):
+                     guidance_scale: Optional[float] = None, host_store: bool = False,
+                     mesh=None):
     """The endpoint target set: for each of ``n_seeds`` draws
     ``normal(PRNGKey(50_000 + seed + s), x0.shape)`` (jax's bits, on the
     host), the teacher's ddim-``teacher_steps`` output from it, rolled in
     ``rollout_chunk`` patches through ``teacher`` (an inference net on
     cond's device). → (noise, targets), each (n_seeds·N, H, W, C), seed
-    major: tensors on the device, or numpy arrays with ``host_store``."""
+    major: tensors on the device, or numpy arrays with ``host_store``.
+
+    The ranks of ``mesh``'s data axis (by default the 1×1×1 ``local_mesh()``)
+    roll a chunk each per round of a seed, and every rank gathers the round's
+    targets. The seed's patches are wrapped around to a multiple of the axis,
+    so that every round splits evenly; the wrapped rows are dropped."""
     from s1s2_torch.sampling.samplers import (ddim_anchored, ddim_generate, ddim_grid_sample,
                                               make_cfg_denoise_fn, make_denoise_fn)
 
@@ -459,18 +487,26 @@ def endpoint_targets(teacher: UNetSmall, schedule: Schedule, cfg: DistillConfig,
         return ddim_grid_sample(fn_c, q_sample(x0_c, nz_c, sab_k, s1mab_k), schedule, grid,
                                 t_par)
 
+    mesh = mesh or local_mesh()
+    nd = mesh.data
+    # each seed's patches, wrapped around to a whole multiple of the data axis
+    order = np.resize(np.arange(n_ds), -(-n_ds // nd) * nd)
     ep_noise, ep_tgt = [], []
     for s in range(n_seeds):
         nz_h = random.normal(random.PRNGKey(50_000 + seed + s), tuple(x0.shape))
-        nz = None if host_store else upload(nz_h, device)
-        tgt_chunks = []
-        for lo in range(0, n_ds, chunk):
-            sl = slice(lo, min(lo + chunk, n_ds))
-            t_c = roll_teacher(cond[sl], x0[sl],
-                               upload(nz_h[sl], device) if host_store else nz[sl])
-            tgt_chunks.append(t_c.cpu().numpy() if host_store else t_c)
+        nz = upload(nz_h, device)
+        tgt = (np.empty(nz_h.shape, np.float32) if host_store
+               else torch.empty(nz.shape, dtype=torch.float32, device=device))
+        for lo in range(0, order.shape[0], chunk * nd):
+            idx = order[lo:lo + chunk * nd]
+            mine = upload(idx[mesh.rows(idx.shape[0])], device)
+            out = roll_teacher(cond.index_select(0, mine), x0.index_select(0, mine),
+                               nz.index_select(0, mine))
+            got = mesh.all_gather(out.float(), ("data",))
+            k = min(idx.shape[0], n_ds - lo)  # the wrapped rows are dropped
+            tgt[lo:lo + k] = got[:k].cpu().numpy() if host_store else got[:k]
         ep_noise.append(nz_h if host_store else nz)
-        ep_tgt.append(np.concatenate(tgt_chunks) if host_store else torch.cat(tgt_chunks))
+        ep_tgt.append(tgt)
     cat = np.concatenate if host_store else torch.cat
     return cat(ep_noise), cat(ep_tgt)
 
@@ -526,9 +562,13 @@ def endpoint_distill(
     ``default_rng(seed).permutation``; a progress record every ``log_every``
     epochs and at the last; ``snapshot_fn(debiased EMA, epoch)`` every
     ``snapshot_every`` epochs before the last.
+
+    ``mesh`` (by default the 1×1×1 ``local_mesh()``): the targets are
+    rolled by the data axis's ranks
+    (:func:`endpoint_targets`), the batch is aligned to the axis (a multiple
+    of its size, at most the target set) and each rank trains on its rows of
+    every batch. With fewer targets than ranks it runs whole on every rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     device = resolve_device(device, "distillation")
     t_par = Parameterization(teacher_param or cfg.teacher_param)
     if mode not in ("anchored", "puregen"):
@@ -539,17 +579,24 @@ def endpoint_distill(
                          "x0̂ = (x_t − σε)/√ᾱ is ill-conditioned at t≈T")
     cond, x0, mask = (upload(a, device).float() for a in (cond, x0, mask))
     n_ds = x0.shape[0]
+    mesh = mesh or local_mesh()
+    if n_seeds * n_ds < mesh.data:
+        mesh = local_mesh()  # fewer targets than ranks: each rank runs them all
     host_store = 2 * n_seeds * x0.numel() * 4 > 2 << 30
     ep_noise, ep_tgt = endpoint_targets(
         inference_net(model, teacher_params, device), schedule, cfg, cond, x0, teacher_steps,
-        n_seeds, t_par, seed, rollout_chunk, mode, guidance_scale, host_store)
+        n_seeds, t_par, seed, rollout_chunk, mode, guidance_scale, host_store, mesh)
     n_ep = ep_noise.shape[0]
-    if n_ep < batch_size:
-        batch_size = n_ep  # never run zero steps: a tiny target set is one batch
+    if batch_size % mesh.data or batch_size > n_ep:
+        # a multiple of the data axis, and never zero steps: a tiny target set
+        # is one batch
+        batch_size = max(min(batch_size, n_ep) // mesh.data * mesh.data, mesh.data)
+    rows = mesh.rows(batch_size)
 
     step = make_endpoint_distill_step(student_model or training_net(model), schedule,
                                       cfg, pure_noise_init=(mode == "puregen"),
-                                      spectral_w=spectral_w, student_param=student_param)
+                                      spectral_w=spectral_w, student_param=student_param,
+                                      mesh=mesh)
     state = create_distill_state(student_params, cfg, device)
     init = state.params
     rng = np.random.default_rng(seed)
@@ -558,10 +605,10 @@ def endpoint_distill(
         order_d = upload(order, device)
         acc = _LossSum(device)
         for lo in range(0, n_ep - batch_size + 1, batch_size):
-            idx = order_d[lo:lo + batch_size]
+            idx = order_d[lo:lo + batch_size][rows]
             idx_ds = idx % n_ds  # seed-tiled → the underlying patch
             if host_store:
-                idx_h = order[lo:lo + batch_size]
+                idx_h = order[lo:lo + batch_size][rows]
                 pair = (upload(ep_noise[idx_h], device), upload(ep_tgt[idx_h], device))
             else:
                 pair = (ep_noise.index_select(0, idx), ep_tgt.index_select(0, idx))
@@ -600,9 +647,12 @@ def progressive_distill(
     previous phase's debiased EMA (the first from ``teacher_params``); from
     phase 1 on the teacher is ε, and its inference net is rebuilt at each
     phase boundary. A progress record every epoch. → {'params': the final
-    student, 'phase_history': [...], 'steps': final_steps}."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    student, 'phase_history': [...], 'steps': final_steps}.
+
+    ``mesh`` (by default the 1×1×1 ``local_mesh()``) runs every phase's
+    step over its data axis: ``batches`` then yields this rank's rows of each
+    global batch (``data.loader.batch_iterator`` with the mesh's data
+    coordinate and size)."""
     device = resolve_device(device, "distillation")
     student = training_net(model)
     params = teacher_params
@@ -610,7 +660,8 @@ def progressive_distill(
     t_param = cfg.teacher_param
     history = []
     for phase, s_steps in enumerate(cfg.phase_steps()):
-        step_fn = make_distill_step(student, schedule, cfg, s_steps, teacher_param=t_param)
+        step_fn = make_distill_step(student, schedule, cfg, s_steps, teacher_param=t_param,
+                                    mesh=mesh)
         state = create_distill_state(params, cfg, device)
         init = state.params
         key = random.PRNGKey(1000 + phase)

@@ -27,6 +27,18 @@ seeded each step from the same ``fold_in(key, step)`` (see
 :func:`step_seed`), which costs no host time and replays the same noise
 when a run resumes. ``"auto"`` is threefry on the CPU and the card's
 generator on a card.
+
+The step runs on a device mesh (``parallel/mesh.py``; the ``mesh`` it is
+built with, by default ``local_mesh()``, the 1×1×1 mesh of this process
+alone, on which every collective is skipped). The batch a rank gets is its data rows, cut
+to its space rows. The step draws for the global batch and shape and takes
+this rank's block, so the noise is the unsharded step's; the loss takes its
+sums and counts over the data and space axes (``parallel/comm.psum``), so it
+is the global batch's loss on every rank; one ``all_reduce`` sums the flat
+gradient over data×space (and a replicated leaf's over the model axis too:
+the backward is seeded with loss/model, ``parallel/comm.gather_channels``);
+the clip's norm adds the sharded leaves' squares over the model axis; and a
+skip is decided by all ranks together, so no replica parts from the others.
 """
 
 from __future__ import annotations
@@ -43,6 +55,8 @@ from s1s2_torch.core import random
 from s1s2_torch.core.parametrize import (Parameterization, p2_weight, pred_to_x0_eps,
                                          q_sample, target_for)
 from s1s2_torch.core.schedule import Schedule
+from s1s2_torch.parallel.comm import psum
+from s1s2_torch.parallel.mesh import AXES, local_mesh, tp_sharded
 from s1s2_torch.train.loss import masked_mse_per_channel
 
 # ---------------------------------------------------------------------------
@@ -138,10 +152,13 @@ class TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class ParamLayout:
     """Names and shapes of a parameter tree, laid end to end in one flat
-    f32 tensor in this order."""
+    f32 tensor in this order. ``sharded`` marks, leaf by leaf, the leaves of
+    which a model axis keeps a slice here (the shapes are the slices'); empty
+    when nothing is sharded."""
 
     names: Tuple[str, ...]
     shapes: Tuple[Tuple[int, ...], ...]
+    sharded: Tuple[bool, ...] = ()
 
     @classmethod
     def of(cls, params: Dict[str, torch.Tensor]) -> "ParamLayout":
@@ -160,6 +177,11 @@ class ParamLayout:
         ``split``, whose backward is one concatenation)."""
         return {n: p.view(s) for n, p, s in zip(self.names, flat.split(self.sizes),
                                                   self.shapes)}
+
+    def sharded_mask(self, device) -> torch.Tensor:
+        """(numel,) bool: True over the elements of the sharded leaves."""
+        return torch.cat([torch.full((n,), bool(f), device=device)
+                          for n, f in zip(self.sizes, self.sharded)])
 
 
 @dataclasses.dataclass
@@ -182,8 +204,13 @@ class TrainState:
     skipped: torch.Tensor  # () int32: non-finite batches skipped
     layout: ParamLayout
 
-    def ema_tree(self) -> Dict[str, torch.Tensor]:
-        return self.layout.unflatten(self.ema_params)
+    def ema_tree(self, mesh=None) -> Dict[str, torch.Tensor]:
+        """The EMA by name; a model-sharded state's is gathered whole (every
+        rank of ``mesh``'s model group enters)."""
+        if not any(self.layout.sharded):
+            return self.layout.unflatten(self.ema_params)
+        full, flat = gather_flat(self.ema_params, self.layout, mesh)
+        return full.unflatten(flat)
 
 
 # ---------------------------------------------------------------------------
@@ -193,10 +220,39 @@ class TrainState:
 B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
-def clip_by_global_norm(g: torch.Tensor, max_norm: float) -> torch.Tensor:
-    """``select(‖g‖ < max, g, g / ‖g‖ · max)``, nothing added to the norm."""
-    norm = torch.sqrt((g * g).sum())
+def clip_by_global_norm(g: torch.Tensor, max_norm: float, sq_norm=None) -> torch.Tensor:
+    """``select(‖g‖ < max, g, g / ‖g‖ · max)``, nothing added to the norm;
+    ``sq_norm(g)`` gives ‖g‖² (default Σg²; :func:`mesh_sq_norm` on a mesh)."""
+    norm = torch.sqrt(sq_norm(g) if sq_norm is not None else (g * g).sum())
     return torch.where(norm < max_norm, g, (g / norm) * max_norm)
+
+
+def mesh_sq_norm(g: torch.Tensor, layout: ParamLayout, mesh) -> torch.Tensor:
+    """‖g‖² of the whole tree from this rank's flat gradient: the sharded
+    leaves' squares summed over the model axis, each replicated leaf once."""
+    if not any(layout.sharded):
+        return (g * g).sum()
+    sq = g * g
+    mask = layout.sharded_mask(g.device)
+    sharded = mesh.all_reduce_(torch.where(mask, sq, 0.0).sum(), ("model",))
+    return sharded + torch.where(mask, 0.0, sq).sum()
+
+
+def reduce_grads(g: torch.Tensor, layout: ParamLayout, mesh) -> torch.Tensor:
+    """The ranks' gradient shares summed into the gradient, in place: every
+    leaf over data×space, a replicated leaf also over the model axis."""
+    mesh.all_reduce_(g, ("data", "space"))
+    if any(layout.sharded):
+        rep = torch.nonzero(~layout.sharded_mask(g.device)).reshape(-1)
+        part = mesh.all_reduce_(g.index_select(0, rep), ("model",))
+        g.index_copy_(0, rep, part)
+    return g
+
+
+def all_ranks(ok: torch.Tensor, mesh) -> torch.Tensor:
+    """``ok`` on every rank of the mesh (a flag reduced over all its axes)."""
+    bad = mesh.all_reduce_((~ok).to(torch.int32), AXES)
+    return bad == 0
 
 
 def warmup_cosine(count: torch.Tensor, peak: float, warmup_steps: int,
@@ -240,11 +296,11 @@ class Optimizer:
         return warmup_cosine(count, cfg.lr, cfg.warmup_steps,
                              max(cfg.total_steps, cfg.warmup_steps + 1))
 
-    def update(self, g: torch.Tensor, opt: AdamState,
-               params: torch.Tensor) -> Tuple[torch.Tensor, AdamState]:
+    def update(self, g: torch.Tensor, opt: AdamState, params: torch.Tensor,
+               sq_norm=None) -> Tuple[torch.Tensor, AdamState]:
         cfg = self.cfg
         if cfg.grad_clip and cfg.grad_clip > 0:
-            g = clip_by_global_norm(g, cfg.grad_clip)
+            g = clip_by_global_norm(g, cfg.grad_clip, sq_norm)
         mu = (1 - B1) * g + B1 * opt.mu
         nu = (1 - B2) * (g * g) + B2 * opt.nu
         count = opt.count + 1
@@ -272,12 +328,17 @@ def create_train_state(params: Dict[str, torch.Tensor], cfg: TrainConfig,
 
 
 def guarded_update(state: TrainState, opt: Optimizer, grads: torch.Tensor,
-                   loss: torch.Tensor, ema_decay: float, inputs_finite=True):
+                   loss: torch.Tensor, ema_decay: float, inputs_finite=True, mesh=None):
     """The optimizer update and the EMA lerp (``(1−d)·p + d·ema``), applied
-    only when the inputs, the loss and the gradients are all finite; else
-    an on-device no-op that counts the skip. → ``(new_state, ok)``."""
-    ok = torch.isfinite(grads).all() & torch.isfinite(loss) & inputs_finite
-    new_params, new_opt = opt.update(grads, state.opt_state, state.params)
+    only when the inputs, the loss and the gradients are all finite (on every
+    rank of ``mesh``, :func:`local_mesh` by default); else an on-device no-op
+    that counts the skip. ``grads`` is this rank's share, summed here over
+    the mesh. → ``(new_state, ok)``."""
+    mesh = mesh or local_mesh()
+    grads = reduce_grads(grads, state.layout, mesh)
+    ok = all_ranks(torch.isfinite(grads).all() & torch.isfinite(loss) & inputs_finite, mesh)
+    new_params, new_opt = opt.update(grads, state.opt_state, state.params,
+                                     lambda g: mesh_sq_norm(g, state.layout, mesh))
     new_params = torch.where(ok, new_params, state.params)
     new_opt = AdamState(*(torch.where(ok, a, b) for a, b in (
         (new_opt.count, state.opt_state.count), (new_opt.mu, state.opt_state.mu),
@@ -336,11 +397,13 @@ class TrainStep(StepDraws):
     step was skipped), ``ch_losses``, ``p2_w``, ``skipped``, all tensors on
     the state's device."""
 
-    def __init__(self, model, schedule: Schedule, cfg: TrainConfig, draws: str = "auto"):
+    def __init__(self, model, schedule: Schedule, cfg: TrainConfig, draws: str = "auto",
+                 mesh=None):
         if not getattr(model, "autograd", False):
             raise ValueError("the train step needs the training path: UNetSmall(autograd=True)")
         super().__init__(draws)
         self.model, self.schedule, self.cfg = model, schedule, cfg
+        self.mesh = mesh or local_mesh()
         self.opt = make_optimizer(cfg)
         self.param = Parameterization(cfg.pred_param)
         self._tables: Dict[torch.device, tuple] = {}
@@ -376,53 +439,130 @@ class TrainStep(StepDraws):
                 .float() if cfg.cfg_drop_prob > 0.0 else None)
         return t, noise, keep
 
+    def p2(self, t: torch.Tensor) -> torch.Tensor:
+        """The p2 weight of the batch: the mean over the global batch's t."""
+        cfg = self.cfg
+        if not cfg.use_p2:
+            return torch.ones((), dtype=torch.float32, device=t.device)
+        alpha_bar = self.tables(t.device)[0]
+        return p2_weight(alpha_bar[t], cfg.p2_gamma, cfg.p2_k).mean().detach()
+
     def loss_and_grads(self, params: torch.Tensor, layout: ParamLayout, cond: torch.Tensor,
                        x0: torch.Tensor, mask: Optional[torch.Tensor], t: torch.Tensor,
-                       noise: torch.Tensor):
+                       noise: torch.Tensor, p2_w: Optional[torch.Tensor] = None):
         """→ (loss, ch_losses, p2_w, grads): the loss of flat ``params`` on
-        one batch and its gradient, a flat f32 tensor."""
-        cfg = self.cfg
-        alpha_bar, sab_t, s1mab_t, band_w = self.tables(params.device)
+        one batch (the global batch's on a mesh) and this rank's share of its
+        gradient, a flat f32 tensor. ``p2_w`` defaults to :meth:`p2` of
+        ``t``."""
+        cfg, mesh = self.cfg, self.mesh
+        if p2_w is None:
+            p2_w = self.p2(t)
+        _, sab_t, s1mab_t, band_w = self.tables(params.device)
         sab, s1mab = sab_t[t], s1mab_t[t]
+        total = lambda v: psum(v, mesh)  # noqa: E731
         flat = params.detach().requires_grad_(True)
         x_t = q_sample(x0, noise, sab, s1mab)
         target = target_for(self.param, x0, noise, sab, s1mab)
         pred = functional_call(self.model, layout.unflatten(flat),
                                (torch.cat([x_t, cond], dim=-1), t))
         base_loss, ch_losses = masked_mse_per_channel(pred, target, mask, band_w,
-                                                      cfg.mask_as_weights)
-        if cfg.use_p2:
-            p2_w = p2_weight(alpha_bar[t], cfg.p2_gamma, cfg.p2_k).mean().detach()
-        else:
-            p2_w = torch.ones((), dtype=torch.float32, device=params.device)
+                                                      cfg.mask_as_weights, total)
         loss = base_loss * p2_w
         if cfg.aux_x0_loss_w > 0.0:
             x0_pred, _ = pred_to_x0_eps(self.param, x_t, pred, sab, s1mab)
             aux_loss, _ = masked_mse_per_channel(x0_pred, x0, mask, band_w,
-                                                 cfg.mask_as_weights)
+                                                 cfg.mask_as_weights, total)
             loss = loss + cfg.aux_x0_loss_w * aux_loss
-        grads, = torch.autograd.grad(loss, flat)
+        grads, = torch.autograd.grad(share(loss, mesh), flat)
         return loss.detach(), ch_losses.detach(), p2_w, grads
 
     def __call__(self, state: TrainState, batch, key):
-        device = state.params.device
+        device, mesh = state.params.device, self.mesh
         cond, x0, mask = (None if a is None else upload(a, device).float() for a in batch)
-        B = x0.shape[0]
-        t, noise, keep = self.draw(key, state.step, B, x0.shape, device)
+        t, noise, keep = global_draws(self.draw, key, state.step, x0.shape, device, mesh)
+        p2_w = self.p2(t)
+        rows = mesh.rows(t.shape[0])
+        t, noise = t[rows], mesh.local(noise, spatial=True)
+        keep = None if keep is None else keep[rows]
         if keep is not None:
             cond = cond * keep
-        loss, ch_losses, p2_w, grads = self.loss_and_grads(state.params, state.layout, cond,
-                                                           x0, mask, t, noise)
+        loss, ch_losses, _, grads = self.loss_and_grads(state.params, state.layout, cond,
+                                                        x0, mask, t, noise, p2_w)
         finite_in = torch.isfinite(cond).all() & torch.isfinite(x0).all()
         new_state, ok = guarded_update(state, self.opt, grads, loss, self.cfg.ema_decay,
-                                       inputs_finite=finite_in)
+                                       inputs_finite=finite_in, mesh=mesh)
         metrics = {"loss": torch.where(ok, loss, torch.full_like(loss, float("nan"))),
                    "ch_losses": ch_losses, "p2_w": p2_w, "skipped": new_state.skipped}
         return new_state, metrics
 
 
+def global_draws(draw, key, step: int, local_shape, device, mesh):
+    """``draw(key, step, B, shape, device)`` for the global batch: the
+    local (B, h, ...) shape times the mesh's data and space sizes."""
+    B, h = local_shape[0], local_shape[1]
+    shape = (B * mesh.data, h * mesh.space) + tuple(local_shape[2:])
+    return draw(key, step, shape[0], shape, device)
+
+
+def share(loss: torch.Tensor, mesh) -> torch.Tensor:
+    """What this rank's backward is seeded with: the loss, divided by the
+    model axis's size (the channel gather's backward sums the shares)."""
+    return loss / mesh.model
+
+
+def tp_shard_state(state: TrainState, mesh) -> TrainState:
+    """A full state as this rank keeps it on ``mesh``'s model axis: each
+    leaf of the params, the Adam moments and the EMA that the rule shards
+    (``parallel/mesh.tp_sharded``) cut to this rank's slice."""
+    L = state.layout
+    sharded = tuple(tp_sharded(s, mesh.model) for s in L.shapes)
+    local = ParamLayout(L.names, tuple(
+        tuple(s[:-1]) + (s[-1] // mesh.model,) if f else tuple(s)
+        for s, f in zip(L.shapes, sharded)), sharded)
+
+    def cut(flat):
+        tree = L.unflatten(flat)
+        return torch.cat([mesh.param_slice(tree[n]).reshape(-1) for n in L.names])
+
+    return TrainState(step=state.step, params=cut(state.params),
+                      opt_state=AdamState(state.opt_state.count, cut(state.opt_state.mu),
+                                          cut(state.opt_state.nu)),
+                      ema_params=cut(state.ema_params), skipped=state.skipped, layout=local)
+
+
+def full_layout(layout: ParamLayout, m: int) -> ParamLayout:
+    """The unsharded layout of a layout whose sharded leaves hold 1/m."""
+    return ParamLayout(layout.names, tuple(
+        tuple(s[:-1]) + (s[-1] * m,) if f else tuple(s)
+        for s, f in zip(layout.shapes, layout.sharded)))
+
+
+def gather_flat(flat: torch.Tensor, layout: ParamLayout, mesh):
+    """(full layout, full flat tensor) from this rank's slices of a
+    model-sharded flat tensor; every rank of the model group enters."""
+    tree = layout.unflatten(flat)
+    return full_layout(layout, mesh.model), torch.cat(
+        [(mesh.all_gather(tree[n], ("model",), dim=-1) if f else tree[n]).reshape(-1)
+         for n, f in zip(layout.names, layout.sharded)])
+
+
+def tp_gather_state(state: TrainState, mesh) -> TrainState:
+    """The full state from the ranks' slices (every rank of the model group
+    enters): the inverse of :func:`tp_shard_state`, bit for bit."""
+    L = state.layout
+    if not any(L.sharded):
+        return state
+    whole = lambda flat: gather_flat(flat, L, mesh)[1]  # noqa: E731
+    return TrainState(step=state.step, params=whole(state.params),
+                      opt_state=AdamState(state.opt_state.count, whole(state.opt_state.mu),
+                                          whole(state.opt_state.nu)),
+                      ema_params=whole(state.ema_params), skipped=state.skipped,
+                      layout=full_layout(L, mesh.model))
+
+
 def make_train_step(model, schedule: Schedule, cfg: TrainConfig,
-                    draws: str = "auto") -> TrainStep:
-    """The train step of ``model`` (a ``UNetSmall(autograd=True)``); see
-    :class:`TrainStep` and the module docstring for ``draws``."""
-    return TrainStep(model, schedule, cfg, draws)
+                    draws: str = "auto", mesh=None) -> TrainStep:
+    """The train step of ``model`` (a ``UNetSmall(autograd=True)``, built on
+    the same ``mesh``); see :class:`TrainStep` and the module docstring for
+    ``draws`` and ``mesh``."""
+    return TrainStep(model, schedule, cfg, draws, mesh)

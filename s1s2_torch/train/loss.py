@@ -7,7 +7,7 @@ whatever dtype the model's forward ran in.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -18,6 +18,7 @@ def masked_mse_per_channel(
     mask: Optional[torch.Tensor] = None,
     band_weights: Optional[torch.Tensor | Sequence[float]] = None,
     mask_as_weights: bool = False,
+    psum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted per-channel MSE → (scalar loss, per-channel losses (C,)).
 
@@ -26,7 +27,12 @@ def masked_mse_per_channel(
     * one denominator, Σw clamped to 1e-6, shared by every channel;
     * optional per-channel band weights, normalised by their clamped sum;
       without them the loss is the mean of the channel losses.
+
+    ``psum`` sums a tensor over the shards of the batch (``parallel/comm.psum``
+    on a mesh): the mean, Σw and the squared errors are then the global
+    batch's. Without it the batch is whole.
     """
+    psum = psum or (lambda t: t)
     pred, target = pred.float(), target.float()
     B, H, W, C = pred.shape
     if mask is None:
@@ -36,11 +42,13 @@ def masked_mse_per_channel(
             mask = mask[..., None]
         w = (mask > 0).float()
     if mask_as_weights:
-        w = w / torch.clamp(w.mean(), min=1e-6)
+        n = torch.full((), float(w.numel()), dtype=torch.float32, device=w.device)
+        w_sum, n = psum(torch.stack([w.sum(), n]))
+        w = w / torch.clamp(w_sum / n, min=1e-6)
 
     se = (pred - target) ** 2 * w
-    denom = torch.clamp(w.sum(), min=1e-6)
-    ch_losses = se.sum(dim=(0, 1, 2)) / denom
+    denom = torch.clamp(psum(w.sum()), min=1e-6)
+    ch_losses = psum(se.sum(dim=(0, 1, 2))) / denom
 
     if band_weights is not None:
         bw = torch.as_tensor(band_weights, dtype=torch.float32, device=pred.device).reshape(C)

@@ -7,8 +7,14 @@ one step late (no per-step host sync), the reference's EMA-weighted
 keeps the best loss across restarts, the resumable state every
 ``save_every`` epochs, resume at ``step // steps_per_epoch + 1`` (the same
 shuffle and the same per-step noise as an unbroken run), a metrics JSONL
-and a ``torch.profiler`` trace of epoch 1. The JAX trainer's mesh options
-(``spatial_shard``, ``model_shard > 1``) are not ported.
+and a ``torch.profiler`` trace of epoch 1.
+
+The step runs on the mesh ``make_mesh_for_batch(batch_size, space=2 if
+spatial_shard, model=model_shard)`` over the processes of the default group
+(``parallel/mesh.py``; one process, the 1×1×1 mesh, without one). Each rank
+reads its data rows; rank 0 alone writes the model files, after every rank
+has entered the gather of a model-sharded EMA; every rank enters
+``save_state``. A rank the mesh leaves idle returns at once.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from s1s2_torch.core.schedule import Schedule
 from s1s2_torch.data.dataset import NpzPatchDataset
 from s1s2_torch.data.loader import MmapCache, batch_iterator
 from s1s2_torch.models.unet import UNetSmall, init_params
+from s1s2_torch.parallel.mesh import is_writer, make_mesh_for_batch, shard_train_step
 from s1s2_torch.train.checkpoint import (reference_artifact_paths, restore_state, save_model,
                                          save_state, state_file)
 from s1s2_torch.train.loop import TrainConfig, create_train_state, make_train_step
@@ -80,9 +87,11 @@ def train_loop(run: RunConfig, cfg: TrainConfig,
     ``best_loss``, ``skipped``, ``final_state``)."""
     if run.save_every < 1:
         raise ValueError(f"save_every must be >= 1, got {run.save_every}")
-    if run.spatial_shard or run.model_shard > 1:
-        raise NotImplementedError("spatial_shard and model_shard > 1 shard the step over a "
-                                  "device mesh: not ported yet (ROADMAP §1 item 7, 7c)")
+    mesh = make_mesh_for_batch(run.batch_size, space=2 if run.spatial_shard else 1,
+                               model=run.model_shard)
+    if not mesh.active:
+        return {"epoch_loss": [], "steps_per_sec": [], "best_loss": float("inf"),
+                "skipped": 0, "final_state": None}
     device = resolve_device(run.device)
     ds = NpzPatchDataset(run.patch_dir, max_files=run.max_patches)
     Cc, Ct, H, W = ds.probe_channels()
@@ -91,7 +100,8 @@ def train_loop(run: RunConfig, cfg: TrainConfig,
 
     schedule = Schedule.cosine(cfg.T) if run.schedule == "cosine" else Schedule.linear(cfg.T)
     model = UNetSmall(out_ch=Ct, base_ch=run.base_ch, in_ch=Cc + Ct,
-                      compute_dtype=DTYPES[run.compute_dtype], autograd=True, remat=run.remat)
+                      compute_dtype=DTYPES[run.compute_dtype], autograd=True, remat=run.remat,
+                      mesh=mesh)
     mlog = MetricsLogger(run.metrics_jsonl) if run.metrics_jsonl else None
     params = init_params(Ct, run.base_ch, 1, seed=run.seed, in_ch=Cc + Ct)
     state = create_train_state(params, cfg, device)
@@ -107,7 +117,9 @@ def train_loop(run: RunConfig, cfg: TrainConfig,
         if progress:
             progress({"resumed_at_step": state.step, "resumed_at_epoch": start_epoch})
 
-    step = make_train_step(model, schedule, cfg)
+    # on a model axis the step cuts the full state to this rank's slices
+    step = shard_train_step(make_train_step(model, schedule, cfg, mesh=mesh), mesh,
+                            spatial=run.spatial_shard, state_template=state)
     key = random.PRNGKey(run.seed + 1)
 
     final_path, last_path, best_path = reference_artifact_paths(run.model_path)
@@ -130,7 +142,9 @@ def train_loop(run: RunConfig, cfg: TrainConfig,
                 # step in flight
                 pending = None
                 for batch in batch_iterator(ds, run.batch_size, shuffle=True, drop_last=True,
-                                            seed=run.seed, epoch=epoch):
+                                            seed=run.seed, epoch=epoch,
+                                            process_index=mesh.coord("data"),
+                                            process_count=mesh.data):
                     state, metrics = step(state, batch, key)
                     if pending is not None:
                         v = float(pending["loss"])
@@ -158,17 +172,21 @@ def train_loop(run: RunConfig, cfg: TrainConfig,
 
             # the EMA-weighted last/best/final triple; save_every > 1 saves less
             # often, "best" then being the best at the save points; the last epoch
-            # always saves, and resume granularity equals the cadence
+            # always saves, and resume granularity equals the cadence. The loss is
+            # the global batch's on every rank, so all ranks decide alike
             do_save = (epoch % run.save_every == 0) or epoch == run.epochs
             if do_save:
-                save_model(state.ema_tree(), last_path)
+                ema = state.ema_tree(mesh)
+                if is_writer():
+                    save_model(ema, last_path)
                 if avg_loss < best_loss:
                     best_loss = avg_loss
-                    save_model(state.ema_tree(), best_path)
-                    with open(best_sidecar, "w") as f:
-                        json.dump({"best_loss": best_loss, "epoch": epoch}, f)
+                    if is_writer():
+                        save_model(ema, best_path)
+                        with open(best_sidecar, "w") as f:
+                            json.dump({"best_loss": best_loss, "epoch": epoch}, f)
                 if run.save_state_dir:
-                    save_state(state, run.save_state_dir)
+                    save_state(state, run.save_state_dir, mesh)
             skipped = int(state.skipped)
             if progress:
                 progress({"epoch": epoch, "avg_loss": avg_loss, "skipped": skipped,
@@ -179,7 +197,9 @@ def train_loop(run: RunConfig, cfg: TrainConfig,
     finally:
         if mlog:
             mlog.close()
-    save_model(state.ema_tree(), final_path)
+    ema = state.ema_tree(mesh)
+    if is_writer():
+        save_model(ema, final_path)
     history["best_loss"] = best_loss
     history["skipped"] = int(state.skipped)
     history["final_state"] = state

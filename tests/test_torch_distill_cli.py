@@ -93,12 +93,22 @@ def test_parser_has_every_flag_and_default_of_jax():
     assert ours == theirs
 
 
-@pytest.mark.parametrize("flag,value", [("--coordinator", "localhost:1234"),
-                                        ("--num_processes", "2"), ("--process_id", "0")])
-def test_multi_process_flags_raise_naming_item_7(setup, tmp_path, flag, value):
-    with pytest.raises(NotImplementedError, match=r"item 7, 7c"):
-        cli.main(["--patch_dir", str(setup / "p"), "--teacher", str(setup / "teacher.msgpack"),
-                  "--model_path", str(tmp_path / "s.msgpack"), flag, value, "--device", "cpu"])
+@pytest.mark.parametrize("flag,value,error", [
+    # a coordinator with no peers: init_process_group's own error, not swallowed
+    ("--coordinator", "localhost:1234", "rank parameter missing"),
+    # without a coordinator JAX's CLI ignores them, and so does the port's
+    ("--num_processes", "2", None), ("--process_id", "0", None)])
+def test_multi_process_flags_at_world_1(setup, tmp_path, flag, value, error):
+    argv = ["--patch_dir", str(setup / "p"), "--teacher", str(setup / "teacher.msgpack"),
+            "--model_path", str(tmp_path / "s.msgpack"), "--base_ch", str(BASE), "--T", "100",
+            "--t_start", "20", "--teacher_steps", "2", "--epochs_per_phase", "1",
+            "--batch_size", "2", "--compute_dtype", "float32", flag, value]
+    if error is None:
+        lines = run_port(argv)
+        assert lines[-1]["phases"] == [1] and (tmp_path / "s.msgpack").is_file()
+    else:
+        with pytest.raises(ValueError, match=error):
+            cli.main(argv + ["--device", "cpu"])
 
 
 def test_cli_needs_a_card_unless_told_cpu(setup, tmp_path):

@@ -21,6 +21,7 @@ from s1s2.models import UNetSmall as JUNet
 from s1s2.train import distill as jd
 from s1s2_torch.core.schedule import Schedule
 from s1s2_torch.models.unet import UNetSmall, init_params
+from s1s2_torch.parallel import make_mesh
 from s1s2_torch.train import distill, loop
 
 N, B, H, BASE, T = 4, 2, 32, 8, 1000
@@ -137,15 +138,22 @@ def test_progressive_distill_phase_history_matches_jax(progressive):
         assert [x for h in got for x in h["epoch_loss"]] == progressive["port", dtype]["losses"]
 
 
-def test_loops_refuse_a_mesh(params, data):
+def test_loops_on_a_world_1_mesh_are_the_loops_without_one(params, data):
+    """With no process group the CLI's mesh is 1×1×1 and every collective is
+    skipped: both loops on it equal the loops given no mesh (which run on
+    ``local_mesh()``) bit for bit."""
     model = UNetSmall(4, BASE, 1, 8, torch.float32, autograd=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        distill.progressive_distill(model, Schedule.cosine(T), distill.DistillConfig(), params,
-                                    make_batches(data, lambda a: a), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="7c"):
-        distill.endpoint_distill(model, Schedule.cosine(T), distill.DistillConfig(), params,
-                                 params, *data, epochs=1, batch_size=2, mesh=object(),
-                                 device="cpu")
+    cfg = distill.DistillConfig(T=T, t_start=20, teacher_steps=2, epochs_per_phase=1)
+    mesh = make_mesh()
+    assert mesh.shape == {"data": 1, "space": 1} and mesh.group(("data",)) is None
+    prog = [distill.progressive_distill(model, Schedule.cosine(T), cfg, params,
+                                        make_batches(data, lambda a: a), mesh=m,
+                                        device="cpu")["params"] for m in (None, mesh)]
+    ends = [distill.endpoint_distill(model, Schedule.cosine(T), cfg, params, params, *data,
+                                     epochs=1, batch_size=2, teacher_steps=2, n_seeds=1,
+                                     mesh=m, device="cpu") for m in (None, mesh)]
+    for a, b in (prog, ends):
+        assert all(torch.equal(a[k], b[k]) for k in a)
 
 
 # ---------------------------------------------------------------------------

@@ -196,11 +196,12 @@ def test_random_and_msgpack_checkpoints(patches, tmp_path):
 
 
 @pytest.mark.parametrize("kw", [{"mesh_data": 2}])
-def test_unported_options_raise(patches, tmp_path, kw):
-    """``--mesh_data`` (ROADMAP §1 item 7c). The panel modes and previews are
-    ported: ``tests/test_torch_harness_panels.py`` runs them."""
+def test_mesh_data_needs_its_world_and_names_the_launch_line(patches, tmp_path, kw):
+    """``--mesh_data N`` runs one process per device: in one process it
+    raises, naming torchrun's launch line (the 2-process runs are in
+    ``tests/test_torch_mesh_cli.py``)."""
     _, tcfg = _cfgs(patches, tmp_path, **kw)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7"):
+    with pytest.raises(ValueError, match=r"torch\.distributed\.run --nproc_per_node 2"):
         th.run_mode(tcfg)
 
 

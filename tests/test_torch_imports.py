@@ -53,9 +53,18 @@ def test_no_blocked_import_in_source(path):
     assert "s1s2_torch.viz.make_glyphs" not in set(_imported_modules(path)) or path == GENERATOR
 
 
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_mesh_or_multi_process_option_is_refused(path):
+    """ROADMAP §1 item 7c is ported: no "not ported" message of it is left.
+    Item 7d's tools that the port refuses keep theirs, under their number."""
+    text = path.read_text()
+    for phrase in ("item 7c", "7, 7c", "(ROADMAP §1 item 7)", "item 7 (7c)"):
+        assert phrase not in text, phrase
+
+
 def test_port_has_the_mirrored_layout():
     for sub in ("core", "ops", "models", "sampling", "eval", "data", "train", "cli", "viz",
-                "tools", "utils"):
+                "tools", "utils", "parallel"):
         assert (REPO / "s1s2_torch" / sub / "__init__.py").is_file(), sub
 
 
@@ -296,7 +305,8 @@ def test_port_runs_with_jax_flax_msgpack_ml_dtypes_and_s1s2_blocked():
             "s1s2_torch.eval.parity", "s1s2_torch.cli.validate_parity",
             "s1s2_torch.cli.convert_ckpt", "s1s2_torch.cli.patchify",
             "s1s2_torch.tools.archive_ckpt", "s1s2_torch.tools.bench_patchify",
-            "s1s2_torch.tools.demo_distill_viz"} <= set(out["modules"])
+            "s1s2_torch.tools.demo_distill_viz", "s1s2_torch.parallel",
+            "s1s2_torch.parallel.mesh", "s1s2_torch.parallel.comm"} <= set(out["modules"])
     assert out["up_convs"] == ["up1", "up2", "up3"] and out["up_forward"] == [2, 16, 16, 4]
     assert out["scene_shape"] == [4, 40, 40] and out["served"] == [3, 16, 16, 4]
     assert out["bench_int8_paths"] == ["bf16", "int8", "int8_quant_up"]

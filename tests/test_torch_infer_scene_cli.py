@@ -124,8 +124,10 @@ def test_stochastic_v_eta_key_equals_the_jax_cli(tiny, tmp_path):
     assert np.abs(b - a).max() <= 1e-4
 
 
-def test_scene_cli_mesh_data_is_not_ported(tiny, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
+def test_scene_cli_mesh_data_needs_its_world(tiny, tmp_path):
+    """One process is a world of 1: ``--mesh_data 8`` names torchrun's launch
+    line (the 2-process run is in ``tests/test_torch_mesh_cli.py``)."""
+    with pytest.raises(ValueError, match=r"torch\.distributed\.run --nproc_per_node 8"):
         main(_files(tiny) + ["--out_dir", str(tmp_path / "o"), "--device", "cpu",
                              "--mesh_data", "8"] + COMMON)
 

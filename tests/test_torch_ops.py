@@ -93,14 +93,18 @@ class TestConvPlainF32:
 def test_train_conv_kept_off_tf32_is_the_conv_and_its_gradients():
     """The card's f32 training conv (``conv3x3._ConvF32``: ``F.conv2d`` with
     TF32 off in its forward and its backward) is ``F.conv2d`` and its exact
-    gradients: the same output, and gradcheck in f64, here on the CPU."""
+    gradients: the same output, and gradcheck in f64, here on the CPU. With
+    SAME's padding (1, 1) and with the space axis's (0, 1), whose input
+    carries its halo rows."""
     from s1s2_torch.ops.conv3x3 import _ConvF32
 
     g = torch.Generator().manual_seed(0)
     x = torch.randn((2, 5, 7, 6), generator=g, dtype=torch.float64, requires_grad=True)
     w = torch.randn((4, 5, 3, 3), generator=g, dtype=torch.float64, requires_grad=True)
-    assert torch.equal(_ConvF32.apply(x, w), torch.nn.functional.conv2d(x, w, padding=1))
-    assert torch.autograd.gradcheck(_ConvF32.apply, (x, w))
+    for padding in ((1, 1), (0, 1)):
+        assert torch.equal(_ConvF32.apply(x, w, padding),
+                           torch.nn.functional.conv2d(x, w, padding=padding))
+        assert torch.autograd.gradcheck(_ConvF32.apply, (x, w, padding))
 
 
 class TestConvPlainBF16:

@@ -13,6 +13,8 @@ is sharded over two of the test run's virtual devices, which sums in
 another order)."""
 
 import argparse
+import contextlib
+import io
 import json
 import os
 
@@ -248,13 +250,25 @@ def test_cli_has_every_flag_and_default_of_the_jax_parser():
     assert port == _actions(jcli.build_parser())
 
 
-@pytest.mark.parametrize("flags", [["--coordinator", "h:1"], ["--num_processes", "2"],
-                                   ["--process_id", "0"], ["--spatial_shard"],
-                                   ["--model_shard", "2"]])
-def test_multi_device_flags_raise_naming_item_7(patches, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cli.main(["--patch_dir", patches, "--model_path", str(tmp_path / "m.msgpack"),
-                  "--base_ch", str(BASE), "--epochs", "1", "--device", "cpu"] + flags)
+@pytest.mark.parametrize("flags,error", [
+    # a coordinator with no peers: init_process_group's own error, not swallowed
+    (["--coordinator", "h:1"], "rank parameter missing"),
+    # without a coordinator JAX's CLI ignores them, and so does the port's
+    (["--num_processes", "2"], None), (["--process_id", "0"], None),
+    # one process is a world of 1: too few devices, as JAX's make_mesh says
+    (["--spatial_shard"], r"mesh 1x2x1 != 1 devices"),
+    (["--model_shard", "2"], r"mesh 1x1x2 != 1 devices")])
+def test_multi_device_flags_at_world_1(patches, tmp_path, flags, error):
+    argv = ["--patch_dir", patches, "--model_path", str(tmp_path / "m.msgpack"), "--base_ch",
+            str(BASE), "--batch_size", "2", "--epochs", "1", "--device", "cpu"] + flags
+    if error is None:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(argv)
+        assert (tmp_path / "m.msgpack").is_file()
+    else:
+        with pytest.raises(ValueError, match=error):
+            cli.main(argv)
+        assert not (tmp_path / "m.msgpack").exists()
 
 
 def test_cli_trains_on_the_cpu_through_the_dispatcher(patches, tmp_path, capsys):
