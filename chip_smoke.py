@@ -23,7 +23,12 @@ Phases, each printing its own seconds:
    input channel lit at a time, in both modes, at the cases of
    ``PROBE_CASES``; it names the tap and channel a wrong swizzle or
    descriptor reads) and both modes at the awkward shapes
-   (``AWKWARD_SHAPES``: Cin 129, 33, 12, 9, Cout 12 and 24, 8² and 20², B=1).
+   (``AWKWARD_SHAPES``: Cin 129, 33, 12, 9, Cout 12 and 24, 8² and 20², B=1),
+   and the int8 mode's int8-out variant (``conv3x3_int8_q``: int8 in, the
+   requant ``clip(rint(relu(acc·deq + b)), -127, 127)`` to int8) bit-equal
+   to its plain version at ``INT8Q_SHAPES`` (the probe's conv, 256² and
+   128 → 128 at B=2; Cin 32 and 64, Cout 12 and 24, 8² and 20²), with the
+   probe's requant and with per-channel scales, a wide bias and no ReLU.
    Then the kernels against their plain PyTorch versions at the main path's shapes
    (the 24x4 student's 13 convs, B=8; the DDIM update at (128,256,256,4)):
    conv bf16 within 1 bf16 ulp plus the f32 accumulation-order bound,
@@ -78,7 +83,9 @@ Phases, each printing its own seconds:
    evidence MAEs asserted against the committed ones and their int8
    forwards checked op by op as in 4.
 4d. The probe path: ``python -m s1s2_torch.tools.probe_int8 all`` in
-   process.
+   process (the conv leg's bf16 and int8 chains, the halo load, the
+   matmul), with exact launch counts; the int8-out conv runs on no other
+   path.
 4e. The CFG line (``bench.bench_cfg``): the 129-file rich set, files 96-127
    through ``cli.evaluate --mode cfg_sweep`` in bf16 and in int8 (rollout
    calibration, per-channel scales, ``conv1`` in bf16), then 9 calls of the
@@ -228,6 +235,29 @@ Phases, each printing its own seconds:
    ``distill`` with ``distill_eps_teacher``, teacher steps 4 and one epoch a
    phase on those files, then 2 endpoint epochs (4 seeds, DDIM-20 rollouts):
    the students bit-equal, exact launches.
+4p. The measurement tools (``s1s2_torch/tools``, ROADMAP §1 item 7d), each
+   in process and printing its own lines but (g): (a) ``roofline`` at its
+   defaults (B=64, base 96, DDIM-50) and for the 24x4's forward: ``mfu`` ≤
+   1 and the scan's overhead printed, exact launches; (b)
+   ``profile_forward``: the trace file written, the bf16 conv kernel the top
+   device op; (c) ``bench_width_throughput --widths 96 64 48 12 24x2 48x4``
+   (B=64 and 128, 30 timed calls a line): every line finite, exact
+   launches; (d) ``bench_variants quick``: a rate for both up-conv forms;
+   (e) ``bench_quality_matched --ckpt distill_eps_teacher --n 32 --int8``:
+   ddim-20 within 0.02 of the anchor 0.44074 (4h's), then the 40-epoch
+   soak, its rows printed beside BENCH_NOTES.md's committed ones (not held
+   to them: the card's training draws differ); (f) ``puregen_table`` with
+   the cfg_v teacher on 4e's files (the rich set's 96-127), ``--steps 1 5
+   --scales 1 3 --n_seeds 4``: the g=3, 5-step cell within 0.02 of the
+   committed ``Pure_Generation/cfg_teacher_table`` mean 0.30443; (g)
+   ``s1s2_torch/tools/demo_results_pack.sh`` (twelve evaluate processes) on
+   the 32-file evidence set with the v teacher: every directory written,
+   each committed CSV of ``examples/results_synthetic/`` present with the
+   same header (three with the header that both packages' harnesses write
+   since the pack was committed, ``PACK_HEADERS_NOW``). The pack starts
+   after (d) and runs beside (e) and (f), whose checks are MAEs and exact
+   counts and do not depend on the card's other work; the soak's seconds
+   and the pack's are taken with both running.
 5. Timing at B=128 with CUDA events: each kernel at each path shape beside
    its plain version, ``F.conv2d`` (bf16 mode only) and its bound (the
    convs through ``tools/bench_conv.time_set``, the conv timing tool's own
@@ -236,15 +266,18 @@ Phases, each printing its own seconds:
    B=64: ``bench.LINE1_BATCH``, ``bench.LINE2_BATCH``) beside ``F.conv2d``
    and the bound, of the per-channel int8 mode at the CFG net's 10 int8
    shapes (B=64), of the int8 up-convs' products at 3f's shapes and at
-   base-96's B=64 beside ``torch._int_mm``, and of the probe kernels beside
-   their plain versions, ``torch.matmul``/``torch._int_mm`` and
-   ``x[1:-1]*2``.
+   base-96's B=64 beside ``torch._int_mm``, of the int8-out conv at the
+   probe's shape (B=32, 256², 128 → 128) beside its plain version and its
+   bound, and of the probe kernels beside their plain versions,
+   ``torch.matmul``/``torch._int_mm`` and ``x[1:-1]*2``.
 
-Each path of 4-4o is driven with every launch count set to 0 just before it
-and read just after; a kernel of the path that was not launched fails it.
+Each path of 4-4p is driven with every launch count set to 0 just before it
+and read just after; a kernel of the path that was not launched fails it
+(4p(g) runs in child processes, whose launches are not counted).
 Then a ``{"kernels": [...]}`` line (the conv rows' times are those of the
 24x4 main path at B=128, and the per-channel int8 row's those of the CFG
-net's shapes at B=64; the matmul has a row per mode, bf16 → bf16 beside
+net's shapes at B=64, and the int8-out row's those of 5b; the matmul has a
+row per mode, bf16 → bf16 beside
 ``torch.matmul`` and int8 → int32 beside ``torch._int_mm``, and a row for
 its int8 mode on the packed up-conv weights of 4i; launches are summed over
 the paths), the card line
@@ -259,6 +292,7 @@ import contextlib
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -340,6 +374,32 @@ QUANT_OPS = ("conv3x3_relu", "conv3x3_relu_int8", "ps_conv_transpose_2x2",
              "ps_conv_transpose_2x2_int8", "conv1x1", "max_pool2")
 # the ops a forward must give bit for bit on the card and the CPU
 EXACT_OPS = ("conv3x3_relu_int8", "ps_conv_transpose_2x2_int8", "max_pool2")
+# 3: the int8-out conv mode against its plain version, (B, H, Cin, Cout): the
+# probe's conv at B=2, then Cin 32 and 64 x Cout 12 and 24 x 8² and 20²
+INT8Q_SHAPES = ((2, 256, 128, 128),) + tuple(
+    (2, hw, ci, co) for ci in (32, 64) for co in (12, 24) for hw in (8, 20))
+# 4p: the measurement tools of ROADMAP §1 item 7d. (c) the width sweep's
+# widths; (e) the ε teacher's committed ddim-20 anchor (4h's) and the soak's
+# epochs and committed rows (BENCH_NOTES.md:79-82, printed beside the card's,
+# not held to them: the card's training draws differ); (f) the pure-generation
+# cell (g, steps) held to the committed cfg_teacher_table mean; (g) the
+# results pack's directories (examples/results_synthetic/)
+TOOL_WIDTHS, TOOL_ITERS = ("96", "64", "48", "12", "24x2", "48x4"), 30
+QM_SOAK_EPOCHS = 40
+QM_SOAK_ROWS = {("ddim", 20): 0.41940, ("ddim", 10): 0.42289, ("ddim", 5): 0.42962,
+                ("dpm2m", 10): 0.40915, ("dpm2m", 5): 0.37561}
+PUREGEN_CELL, PUREGEN_ANCHOR = (3.0, 5), 0.30443
+PUREGEN_ARGS = ["--steps", "1", "5", "--scales", "1", "3", "--n_seeds", "4"]
+PACK_DIRS = ("Onestep", "DDIM_Multi-step", "DDIM_Sweep", "VDiag", "Seed_Stats", "Per_Band",
+             "Ablate", "Pure_Generation", "Limitation_Test", "Baselines", "DDIM_int8")
+# the CSVs whose header the JAX package's harness changed after the pack was
+# committed (an eta column in the ddim tables; vdiag's cosines renamed): held
+# to the header both harnesses write now (the port's mode tests hold its CSVs
+# to the JAX harness's); every other CSV to the committed header
+_DDIM_HEADER = ["file", "t_start", "ddim_steps", "eta", "MAE", "MSE", "PSNR", "SAM(rad)", "ERGAS"]
+PACK_HEADERS_NOW = {"DDIM_Multi-step/ddim_metrics.csv": _DDIM_HEADER,
+                    "DDIM_int8/ddim_metrics.csv": _DDIM_HEADER,
+                    "VDiag/vdiag.csv": ["file", "t_small", "v_MSE", "v_cosine", "eps_cosine"]}
 
 
 class Phase:
@@ -502,6 +562,20 @@ PROBE_CASES = (("bf16", 136, 24, (0, 7, 8, 15, 16, 31, 40, 63, 64, 100, 127, 128
                ("int8", 64, 48, (0, 15, 16, 31, 32, 47, 48, 63)))
 AWKWARD_SHAPES = tuple((ci, co, hw) for ci in (129, 33, 12, 9) for co in (12, 24)
                        for hw in (8, 20))
+
+
+def int8q_operands(torch, B, H, Cin, Cout, device, gen, probe=True):
+    """Operands of the int8-out conv mode: int8 activations and weights
+    uniform in [-127, 127]; with ``probe`` the probe's requant (deq the one
+    scale 1/(127·8), zero bias), else per-channel scales and a bias wide
+    enough that outputs clip at both ends. → (x8, w8, deq, b)."""
+    x8 = torch.randint(-127, 128, (B, H, H, Cin), generator=gen, device=device).to(torch.int8)
+    w8 = torch.randint(-127, 128, (3, 3, Cin, Cout), generator=gen, device=device).to(torch.int8)
+    if probe:
+        return (x8, w8, torch.full((Cout,), 1.0 / (127.0 * 8), device=device),
+                torch.zeros(Cout, device=device))
+    deq = (0.2 + torch.rand((Cout,), generator=gen, device=device)) * 1e-3
+    return x8, w8, deq, 50.0 * torch.randn((Cout,), generator=gen, device=device)
 
 
 def layout_probe(torch, mode, Cin, Cout, channels, device, side=20, batch=2):
@@ -1592,6 +1666,168 @@ def panels_phase(torch, dev, card, drive, require, path_launches):
         print(f"distill demo: {DEMO_K} strips in {dt:.2f} s on {card}", flush=True)
 
 
+def tools_phase(torch, dev, card, drive, require, path_launches):
+    """4p: the measurement tools (see the module docstring), each in
+    process but the results pack, a shell script of evaluate processes."""
+    import csv
+    import shutil
+
+    from s1s2_torch import bench
+    from s1s2_torch.data.synthetic import make_synthetic_patches
+    from s1s2_torch.headline import CKPT_DIR
+    from s1s2_torch.tools import (bench_quality_matched, bench_variants,
+                                  bench_width_throughput, profile_forward, puregen_table,
+                                  roofline)
+
+    def exact(path, want):
+        got = {k: v for k, v in path_launches[path].items() if v}
+        require(got == {k: v for k, v in want.items() if v},
+                f"{path}: launches {path_launches[path]}, expected {want}")
+
+    # (a) roofline at its defaults (B=64, base 96, DDIM-50), then the 24x4's
+    # forward (B=128, base 24, 4x stem): forward 1 + 10·iters calls, scan
+    # 1 + iters calls of 50 steps
+    r = drive("tool roofline", lambda: roofline.run(device=dev))
+    print(f"roofline base 96 on {card}: mfu {r['mfu']:.4f}, forward mfu {r['forward_mfu']:.4f}, "
+          f"scan overhead {r['scan_overhead']:+.4f}", flush=True)
+    require(0.0 < r["mfu"] <= 1.0 and 0.0 < r["forward_mfu"] <= 1.0,
+            f"roofline: mfu {r['mfu']}, forward {r['forward_mfu']}")
+    exact("tool roofline", {"conv3x3_relu": 13 * (51 + 6 * 50), "fused_ddim_update": 6 * 50})
+    r = drive("tool roofline 24x4", lambda: roofline.run(batch=128, base=24, stem=4,
+                                                          device=dev))
+    require(0.0 < r["mfu"] <= 1.0, f"roofline 24x4: mfu {r['mfu']}")
+
+    # (b) profile_forward: a trace file, the bf16 conv kernel on top
+    with tempfile.TemporaryDirectory() as td:
+        r = drive("tool profile_forward", lambda: profile_forward.run(td, device=dev))
+        require(os.path.isfile(r["trace"]) and os.path.getsize(r["trace"]) > 0,
+                f"profile_forward wrote no trace at {r['trace']}")
+        require("conv3x3_bf16_kernel" in r["kernels"][0]["name"],
+                f"profile_forward: the top device op is {r['kernels'][0]['name']}")
+    exact("tool profile_forward", {"conv3x3_relu": 2 * 50 * 13, "fused_ddim_update": 100})
+
+    # (c) the width sweep: per width 3 calibration forwards (13 bf16 convs),
+    # then per batch 1 + TOOL_ITERS int8 DDIM-1 calls (the bf16 inc and 12
+    # int8 convs)
+    rows = drive("tool width sweep", lambda: bench_width_throughput.run(
+        widths=TOOL_WIDTHS, iters=TOOL_ITERS, device=dev))
+    require(len(rows) == 2 * len(TOOL_WIDTHS) and all(
+        r["finite"] and r["distill1_int8_patches_per_s"] for r in rows),
+        f"bench_width_throughput: {rows}")
+    n = len(TOOL_WIDTHS)
+    c = 1 + TOOL_ITERS
+    exact("tool width sweep", {"conv3x3_relu": n * (39 + 2 * c),
+                               "conv3x3_relu_int8": n * 2 * c * 12,
+                               "fused_ddim_update": n * 2 * c})
+
+    # (d) the variants, quick: B=32, ps and convt, 4 calls of 50 steps each
+    rows = drive("tool variants", lambda: bench_variants.run(quick=True, device=dev))
+    require([r["up"] for r in rows] == ["ps", "convt"]
+            and all(r.get("patches_per_s") and r["finite"] for r in rows),
+            f"bench_variants: {rows}")
+    exact("tool variants", {"conv3x3_relu": 2 * 4 * 50 * 13, "fused_ddim_update": 2 * 4 * 50})
+
+    with tempfile.TemporaryDirectory() as td:
+        # (g) the results pack: the shell script's twelve evaluate processes on
+        # the evidence set with the v teacher; `python` on PATH is this one.
+        # It runs beside (e) and (f), in a session of its own so that the
+        # script's children go with it if a check fails first
+        make_synthetic_patches(f"{td}/ev", n=FULL_FILES, size=SIZE, seed=0)
+        os.makedirs(f"{td}/bin")
+        with open(f"{td}/bin/python", "w") as f:  # exec, not a link: a venv's python
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')  # finds its packages
+        os.chmod(f"{td}/bin/python", 0o755)
+        repo = str(Path(__file__).resolve().parent)
+        env = dict(os.environ, PATH=f"{td}/bin:" + os.environ.get("PATH", ""),
+                   PYTHONPATH=repo)
+        t_pack = time.perf_counter()
+        pack_log = open(f"{td}/pack.log", "w+")
+        pack = subprocess.Popen(
+            ["bash", f"{repo}/s1s2_torch/tools/demo_results_pack.sh", f"{td}/ev",
+             str(CKPT_DIR / "distill_v_teacher.bf16.msgpack"), f"{td}/pack", "v"],
+            cwd=repo, env=env, stdout=pack_log, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)
+        try:
+            # (e) the quality table on the ε teacher and the evidence set, the
+            # anchor's protocol; then the soak, its rows beside the committed ones
+            teacher = str(CKPT_DIR / "distill_eps_teacher.bf16.msgpack")
+            qm = drive("tool quality ckpt", lambda: bench_quality_matched.main(
+                ["--ckpt", teacher, "--n", str(FULL_FILES), "--int8", "--out", f"{td}/qm"]))
+            d20 = qm["rows"][("ddim", 20)]
+            print(f"quality table, ε teacher on {card}: ddim-20 MAE {d20:.5f} (anchor "
+                  f"{TEACHER_ANCHORS['eps']}, difference {d20 - TEACHER_ANCHORS['eps']:+.5f}); "
+                  f"summary {qm['summary']}", flush=True)
+            require(abs(d20 - TEACHER_ANCHORS["eps"]) < MAE_SLACK,
+                    f"quality table: ddim-20 MAE {d20} is not within {MAE_SLACK} of "
+                    f"{TEACHER_ANCHORS['eps']}")
+            t0 = time.perf_counter()
+            soak = drive("tool quality soak", lambda: bench_quality_matched.main(
+                ["--epochs", str(QM_SOAK_EPOCHS), "--n", str(FULL_FILES), "--out", f"{td}/qm"]))
+            print(f"quality table, {QM_SOAK_EPOCHS}-epoch soak on {card} "
+                  f"({time.perf_counter() - t0:.2f} s): " + ", ".join(
+                      f"{k[0]}-{k[1]} {v:.5f} (committed {QM_SOAK_ROWS[k]})"
+                      for k, v in soak["rows"].items())
+                  + f"; quality_matched {soak['summary']['quality_matched']}", flush=True)
+            for path in ("tool quality ckpt", "tool quality soak"):
+                n = path_launches[path]
+                require(min(n["conv3x3_relu"], n["fused_ddim_update"]) >= 1,
+                        f"{path}: a kernel was not launched: {n}")
+            require(path_launches["tool quality ckpt"]["conv3x3_relu_int8"] >= 1,
+                    f"tool quality ckpt: no int8 conv: {path_launches['tool quality ckpt']}")
+
+            # (f) the pure-generation table: the cfg_v teacher on the rich set's
+            # files 96-127 (4e's set)
+            rich, lst = f"{td}/rich", f"{td}/eval.txt"
+            n_rich, first, end = bench.CFG_SET
+            make_synthetic_patches(rich, n=n_rich, size=SIZE, seed=0, rich=True, compress=False)
+            with open(lst, "w") as f:
+                f.write("".join(f"patch_{i:06d}.npz\n" for i in range(first, end)))
+            pg = drive("tool puregen", lambda: puregen_table.main(
+                ["--ckpt", str(CKPT_DIR / "cfg_v_teacher.bf16.msgpack"), "--patch_dir", rich,
+                 "--file_list", lst, "--out_dir", f"{td}/pg"] + PUREGEN_ARGS))
+            cell = [r for r in pg if (r["guidance"], r["steps"]) == PUREGEN_CELL]
+            require(len(pg) == 4 and len(cell) == 1, f"puregen_table: rows {pg}")
+            mae = cell[0]["MAE_mean"]
+            print(f"pure-generation g={PUREGEN_CELL[0]:g}, {PUREGEN_CELL[1]} steps on {card}: MAE "
+                  f"{mae:.5f} (committed {PUREGEN_ANCHOR}, difference {mae - PUREGEN_ANCHOR:+.5f})",
+                  flush=True)
+            require(abs(mae - PUREGEN_ANCHOR) < MAE_SLACK,
+                    f"puregen_table: MAE {mae} is not within {MAE_SLACK} of {PUREGEN_ANCHOR}")
+            n = path_launches["tool puregen"]
+            require(n["conv3x3_relu"] >= 1, f"tool puregen: no bf16 conv launched: {n}")
+            rc = pack.wait(timeout=900)
+        finally:
+            if pack.poll() is None:
+                os.killpg(pack.pid, signal.SIGKILL)
+                pack.wait()
+            pack_log.seek(0)
+            out = pack_log.read()
+            pack_log.close()
+        print(out[-3000:] if rc == 0 else out[-5000:], flush=True)
+        print(f"results pack on {card}: exit {rc}, {time.perf_counter() - t_pack:.2f} s "
+              f"(beside (e) and (f))", flush=True)
+        require(rc == 0, f"demo_results_pack.sh exited {rc}")
+        committed = Path(repo) / "examples" / "results_synthetic"
+        n_csv = 0
+        for d in PACK_DIRS:
+            ours = Path(td, "pack", d)
+            require(ours.is_dir() and any(ours.iterdir()), f"results pack: {d} not written")
+            for ref in sorted(committed.joinpath(d).glob("*.csv")):
+                got = ours / ref.name
+                require(got.is_file(), f"results pack: {d}/{ref.name} not written")
+                with open(ref) as f1, open(got) as f2:
+                    h_ref, h_got = next(csv.reader(f1)), next(csv.reader(f2))
+                want = PACK_HEADERS_NOW.get(f"{d}/{ref.name}", h_ref)
+                require(h_got == want, f"results pack: {d}/{ref.name} header {h_got}, want "
+                                       f"{want} (committed {h_ref})")
+                n_csv += 1
+        print(f"results pack: all {len(PACK_DIRS)} directories written, {n_csv} CSV headers "
+              f"as expected ({n_csv - len(PACK_HEADERS_NOW)} equal to the committed pack's, "
+              f"{len(PACK_HEADERS_NOW)} the headers the harnesses write since: "
+              f"{sorted(PACK_HEADERS_NOW)})", flush=True)
+        shutil.rmtree(f"{td}/pack", ignore_errors=True)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1622,8 +1858,8 @@ def main():
     from s1s2_torch.models.unet import load_unet
     from s1s2_torch.models.weights import params_from_numpy, spec_arch
     from s1s2_torch.ops import _build
-    from s1s2_torch.ops.conv3x3 import (conv3x3_relu, conv3x3_relu_int8,
-                                        conv3x3_relu_int8_plain)
+    from s1s2_torch.ops.conv3x3 import (conv3x3_int8_q, conv3x3_int8_q_plain, conv3x3_relu,
+                                        conv3x3_relu_int8, conv3x3_relu_int8_plain)
     from s1s2_torch.ops.fused_elementwise import (ddim_coefs, ddim_update_plain,
                                                   fused_ddim_update)
     from s1s2_torch.ops.halo import halo_rows_x2, halo_rows_x2_plain
@@ -1636,12 +1872,14 @@ def main():
     from s1s2_torch.train.checkpoint import load_params
 
     kernels = (conv3x3_relu, conv3x3_relu_int8, fused_ddim_update, matmul, halo_rows_x2)
-    path_launches, matmul_launches, int8_launches = {}, {}, {}
+    path_launches, matmul_launches, int8_launches, int8q_launches = {}, {}, {}, {}
 
     def drive(path, fn):
         """Run one path with every launch count set to 0 just before it; keep
-        the counts read just after (the matmul's also by mode)."""
-        for k in kernels:
+        the counts read just after (the matmul's also by mode, the int8 conv
+        by scale mode, and the int8-out conv's apart: only the probe runs
+        it)."""
+        for k in kernels + (conv3x3_int8_q,):
             k.launches = 0
         matmul.mode_launches = dict.fromkeys(matmul.mode_launches, 0)
         conv3x3_relu_int8.mode_launches = dict.fromkeys(conv3x3_relu_int8.mode_launches, 0)
@@ -1650,8 +1888,10 @@ def main():
         path_launches[path] = {k.__name__: k.launches for k in kernels}
         matmul_launches[path] = dict(matmul.mode_launches)
         int8_launches[path] = dict(conv3x3_relu_int8.mode_launches)
+        int8q_launches[path] = conv3x3_int8_q.launches
         print(f"launches in {path}: {path_launches[path]}; matmul by mode "
-              f"{matmul_launches[path]}; int8 conv by scale {int8_launches[path]}", flush=True)
+              f"{matmul_launches[path]}; int8 conv by scale {int8_launches[path]}; int8-out "
+              f"conv {int8q_launches[path]}", flush=True)
         return out
 
     def require(cond, what):
@@ -1738,6 +1978,25 @@ def main():
             for m in ("bf16", "int8"):
                 key, e = check_conv(awkward_inputs, "awkward", 1, hw, Cin, Cout, m)
                 err[key] = max(err[key], e)
+        # the int8-out mode: the probe's requant with ReLU, and per-channel
+        # scales and a wide bias without it (outputs clipped at both ends)
+        err["conv3x3_int8_q"] = 0.0
+        for B, H, Cin, Cout in INT8Q_SHAPES:
+            for probe in (True, False):
+                x8, w8, deq, b = int8q_operands(torch, B, H, Cin, Cout, dev, gen, probe)
+                got = conv3x3_int8_q(x8, w8, deq, b, apply_relu=probe)
+                ref = conv3x3_int8_q_plain(x8, w8, deq, b, apply_relu=probe)
+                torch.cuda.synchronize()
+                same = bool(torch.equal(got, ref))
+                e = float((got.int() - ref.int()).abs().max())
+                err["conv3x3_int8_q"] = max(err["conv3x3_int8_q"], e)
+                clipped = float((ref.abs() == 127).float().mean())
+                print(f"check int8-out {'probe requant' if probe else 'per-channel, no relu'} "
+                      f"{H}x{H} {Cin}->{Cout} B={B}: bit-equal={same}, max_abs_err={e:.3g}, "
+                      f"clipped share {clipped:.3f} {'ok' if same else 'FAIL'}", flush=True)
+                require(same, f"the int8-out conv disagrees at {H}x{H} {Cin}->{Cout} "
+                              f"(probe={probe})")
+        del x8, w8, got, ref
         for name, H, Cin, Cout, mode in shapes:
             for m in ("bf16", "int8") if mode == "int8" else ("bf16",):
                 key, e = check_conv(conv_inputs, name, CHECK_BATCH, H, Cin, Cout, m)
@@ -2476,12 +2735,31 @@ def main():
                "runs without a group"):
         mesh_phase(torch, dev, card, require, path_launches, matmul_launches, int8_launches)
 
+    with Phase("measurement tools: roofline, profile_forward, the width and variant sweeps, "
+               "the quality and pure-generation tables, the results pack"):
+        tools_phase(torch, dev, card, drive, require, path_launches)
+        torch.cuda.empty_cache()
+
     with Phase("probe path: probe_int8 all"):
         probe = drive("probe", lambda: probe_int8.main(["all"]))
         n = path_launches["probe"]
-        require(min(matmul_launches["probe"].values()) >= 1 and n["halo_rows_x2"] >= 1,
-                f"the probe path missed a kernel: {n}, matmul by mode {matmul_launches['probe']}")
+        # each timed case: one untimed call and ITERS timed ones; the conv
+        # chains CONV_REPS convs a call, the int8 chain's check one chain more;
+        # the matmul's exactness check one int8 call more, the halo's one call
+        calls, reps = 1 + probe_int8.ITERS, probe_int8.CONV_REPS
+        want = {"conv3x3_relu": calls * reps, "conv3x3_relu_int8": 0, "fused_ddim_update": 0,
+                "matmul": 2 * calls + 1, "halo_rows_x2": calls + 1}
+        require(n == want and matmul_launches["probe"] == {"bf16": calls, "int8": calls + 1}
+                and int8q_launches["probe"] == (calls + 1) * reps,
+                f"the probe path: launches {n} (want {want}), matmul by mode "
+                f"{matmul_launches['probe']}, int8-out conv {int8q_launches['probe']} (want "
+                f"{(calls + 1) * reps})")
+        print(f"probe conv on {card}: bf16 chain {probe['conv']['bf16']:.4f} ms, int8 chain "
+              f"{probe['conv']['int8']:.4f} ms, ratio {probe['conv']['int8_speedup']:.3f}; "
+              f"F.conv2d chain {probe['conv']['conv2d_bf16']:.4f} ms", flush=True)
         torch.cuda.empty_cache()
+    others = {p: c for p, c in int8q_launches.items() if c and p != "probe"}
+    require(not others, f"the int8-out conv ran outside the probe: {others}")
 
     rows = []
     with Phase(f"timing at B={BATCH} on {card}"):
@@ -2510,6 +2788,21 @@ def main():
                             {"int8": bench.LINE2_BATCH}, 3, 1)
         pc = bench_conv.time_set("cfg", cfg_inputs, bench_conv.int8_only(cfg_shapes),
                                  {"int8": CFG_CHECK_BATCH}, 3, 1, per_channel=True)["int8"]
+
+        # the int8-out mode at the probe's shape (one conv of its chain), two
+        # inputs alternating, beside its plain version and its bound (no
+        # PyTorch call computes an int8 conv on the card)
+        B, H, _, C = probe_int8.CONV_SHAPE
+        ins = [int8q_operands(torch, B, H, C, C, dev, gen) for _ in range(2)]
+        q_ms = time_ms(conv3x3_int8_q, ins, 20)
+        q_plain = time_ms(conv3x3_int8_q_plain, ins, 1)
+        q_bound, q_by = bound_ms(2 * B * H * H * C + 9 * C * C + 8 * C,
+                                 2.0 * 9 * B * H * H * C * C, "int8")
+        print(f"time int8-out conv {H}x{H} {C}->{C} B={B}: kernel {q_ms:.4f} ms "
+              f"({2.0 * 9 * B * H * H * C * C / q_ms / 1e9:.1f} T/s), plain {q_plain:.4f} ms, "
+              f"bound {q_bound:.4f} ms ({q_by}), {q_bound / q_ms:.3f} of the bound", flush=True)
+        del ins
+        torch.cuda.empty_cache()
 
         # the int8 up-convs' products on the packed weights: each model's three
         # at its 3f batch, and base-96's at bench_int8's B=64 (the quant_up path;
@@ -2606,6 +2899,14 @@ def main():
                  "plain_ms": pc["plain"], "bound_ms": pc["bound"],
                  "bound_by": "bytes" if pc["bytes"] >= pc["operations"] else "operations",
                  "library_ms": None})
+    rows.append({"name": f"conv3x3 (int8-out mode: int8 in, requant to int8; the probe's conv, "
+                         f"B={probe_int8.CONV_SHAPE[0]}, {probe_int8.CONV_SHAPE[1]}², "
+                         f"{probe_int8.CONV_SHAPE[3]}->{probe_int8.CONV_SHAPE[3]})",
+                 "route": "cuda", "source": src + "conv3x3.cu",
+                 "replaces": "s1s2/ops/conv3x3.py:130",
+                 "launches": sum(int8q_launches.values()),
+                 "max_abs_err": err["conv3x3_int8_q"], "ms": q_ms, "plain_ms": q_plain,
+                 "bound_ms": q_bound, "bound_by": q_by, "library_ms": None})
     rows.append({"name": "fused_ddim_update", "route": "cuda",
                  "source": src + "fused_elementwise.cu",
                  "replaces": "s1s2/ops/fused_elementwise.py:56",

@@ -9,10 +9,13 @@ space-to-depth stem (``stem_s2d``) that runs the whole body at (H/s, W/s).
 Compute runs in ``compute_dtype`` (bf16 on the card, where the 3×3 convs go
 through the hand-written kernel; f32 is a parity mode for the CPU). The
 parameters are f32, as in the JAX model. The JAX model's two up paths
-(``up_impl="convt"``, a flax ConvTranspose, and ``"ps"``) share one param
-tree and compute the same function; the port runs the ``ps`` form, so a
-tree from either loads as it is. :func:`init_params` gives a freshly
-initialised tree with flax's own bits.
+share one param tree and compute the same function, so a tree from either
+loads as it is: ``up_impl="ps"`` (the port's default; the JAX model's
+default is ``"convt"``) is one matmul and a pixel shuffle
+(``ops/pixel_shuffle.py``), ``"convt"`` PyTorch's ``F.conv_transpose2d``,
+the counterpart of flax's ``nn.ConvTranspose`` (a library op in both
+packages). The 3×3 convs run on the kernel in both. :func:`init_params`
+gives a freshly initialised tree with flax's own bits.
 
 ``UNetSmall(autograd=True)`` is the training path: the 3×3 convs run
 through ``ops/conv3x3.conv3x3_relu_train`` (``F.conv2d``, differentiable)
@@ -53,6 +56,7 @@ from s1s2_torch.parallel.mesh import tp_sharded
 
 BLOCKS = ("down1", "down2", "down3", "conv3", "conv2", "conv1")
 UPS = ("up3", "up2", "up1")
+UP_IMPLS = ("ps", "convt")
 
 
 def _param(*shape) -> nn.Parameter:
@@ -175,16 +179,31 @@ class DoubleConv(nn.Module):
         return double_conv(x, *ps, *flags)
 
 
+def conv_transpose_2x2(x: torch.Tensor, kernel: torch.Tensor,
+                       bias: torch.Tensor) -> torch.Tensor:
+    """The 2×2 stride-2 transposed conv as ``F.conv_transpose2d``: x
+    (B,H,W,Ci), kernel (2,2,Ci,Co) in flax ConvTranspose layout (taps
+    spatially flipped), bias (Co,) → (B,2H,2W,Co) in x's dtype, the bias
+    added after the product rounds, as flax's ``nn.ConvTranspose`` adds it."""
+    w = torch.flip(kernel, dims=(0, 1)).permute(2, 3, 0, 1).to(x.dtype)  # (Ci, Co, kH, kW)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=2)
+    return y.permute(0, 2, 3, 1) + bias.to(x.dtype)
+
+
 class UpPS(nn.Module):
-    def __init__(self, ci: int, co: int, mesh=None):
+    """The 2×2 stride-2 up-conv: ``impl`` "ps" (matmul and pixel shuffle) or
+    "convt" (:func:`conv_transpose_2x2`), one param tree."""
+
+    def __init__(self, ci: int, co: int, mesh=None, impl: str = "ps"):
         super().__init__()
-        self.sharded, self.mesh = sharded_out(co, mesh), mesh
+        self.sharded, self.mesh, self.impl = sharded_out(co, mesh), mesh, impl
         co = co // mesh.model if self.sharded else co
         self.kernel = _param(2, 2, ci, co)
         self.bias = _param(co)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = ps_conv_transpose_2x2(x, self.kernel, self.bias)
+        up = ps_conv_transpose_2x2 if self.impl == "ps" else conv_transpose_2x2
+        y = up(x, self.kernel, self.bias)
         return gather_channels(y, self.mesh) if self.sharded else y
 
 
@@ -206,12 +225,16 @@ class UNetSmall(nn.Module):
     float32. ``in_ch`` counts the x_t and cond channels together.
     ``autograd`` selects the training path and ``remat`` its recomputed
     blocks (module docstring); both are off for inference. ``mesh`` makes
-    it this rank's part of the model on a device mesh (module docstring)."""
+    it this rank's part of the model on a device mesh, and ``up_impl`` picks
+    the up-convs' form (module docstring)."""
 
     def __init__(self, out_ch: int = 4, base_ch: int = 96, stem_s2d: int = 1,
                  in_ch: int = 8, compute_dtype: torch.dtype = torch.bfloat16,
-                 autograd: bool = False, remat: bool = False, mesh=None):
+                 autograd: bool = False, remat: bool = False, mesh=None,
+                 up_impl: str = "ps"):
         super().__init__()
+        if up_impl not in UP_IMPLS:
+            raise ValueError(f"up_impl must be one of {UP_IMPLS}, got {up_impl!r}")
         if remat and not autograd:
             raise ValueError("remat recomputes the training path: it needs autograd=True")
         if mesh is not None and mesh.space > 1 and not autograd:
@@ -224,11 +247,11 @@ class UNetSmall(nn.Module):
         self.down1 = blk(b, 2 * b)
         self.down2 = blk(2 * b, 4 * b)
         self.down3 = blk(4 * b, 8 * b)
-        self.up3 = UpPS(8 * b, 4 * b, mesh)
+        self.up3 = UpPS(8 * b, 4 * b, mesh, up_impl)
         self.conv3 = blk(8 * b, 4 * b)
-        self.up2 = UpPS(4 * b, 2 * b, mesh)
+        self.up2 = UpPS(4 * b, 2 * b, mesh, up_impl)
         self.conv2 = blk(4 * b, 2 * b)
-        self.up1 = UpPS(2 * b, b, mesh)
+        self.up1 = UpPS(2 * b, b, mesh, up_impl)
         self.conv1 = blk(2 * b, b)
         self.outc = Conv1x1(b, out_ch * s * s, mesh)
 
@@ -258,10 +281,11 @@ class UNetSmall(nn.Module):
 def load_unet(state: Dict[str, torch.Tensor], out_ch: int = 4, base_ch: int = 96,
               stem_s2d: int = 1, in_ch: int = 8,
               compute_dtype: torch.dtype = torch.bfloat16,
-              device="cuda", mesh=None) -> UNetSmall:
+              device="cuda", mesh=None, up_impl: str = "ps") -> UNetSmall:
     """A UNetSmall holding ``state`` (see ``weights.params_from_numpy``);
     on a ``mesh`` with a model axis, this rank's slices of it."""
-    model = UNetSmall(out_ch, base_ch, stem_s2d, in_ch, compute_dtype, mesh=mesh)
+    model = UNetSmall(out_ch, base_ch, stem_s2d, in_ch, compute_dtype, mesh=mesh,
+                      up_impl=up_impl)
     if mesh is not None:
         state = {k: mesh.param_slice(v) for k, v in state.items()}
     model.load_state_dict(state, strict=True)

@@ -163,6 +163,8 @@ class Kernels:
             # x, x8 scratch, packed w8, deq, bias, y, B, H, W, Cin, Cout, sx, relu,
             # device, stream
             "s1s2k_conv3x3_int8": [P, P, P, P, P, P, I, I, I, I, I, F, P, I, I, P],
+            # x8, packed w8, deq, bias, y8, B, H, W, Cin, Cout, relu, device, stream
+            "s1s2k_conv3x3_int8_q": [P, P, P, P, P, I, I, I, I, I, I, I, P],
             # mode (1: int8), Cs, Cout, out: int[6]
             "s1s2k_conv3x3_plan": [I, I, I, P],
             # x, eps, x0, xn, n, s1m, sabg, sabn, s1mn, device, stream

@@ -17,6 +17,14 @@ from Cout, :func:`conv_plan`):
   ReLU, bf16 out. The caller computes ``deq``: ``f32(sx)·sw`` for one
   scale, ``sw`` alone when the per-channel scales were folded into the
   weights (``models/quant.py``).
+* :func:`conv3x3_int8_q` — the int8 mode's int8-out variant, the fused
+  requant of the reference probe's int8 conv chain
+  (``tools/probe_pallas_int8.py:probe_conv``): int8 activations whose Cin is
+  a multiple of 32, read as they are (no quantize pass), the same int32
+  sums and ``acc·deq[co] + b[co]``, optional ReLU, then
+  ``clip(rint(·), -127, 127)``, int8 out. With ``deq`` one scale and ``b``
+  zero it is the probe's ``clip(round(max(f32(acc)·scale, 0)), -127, 127)``
+  bit for bit.
 
 The kernel reads its weights K-major, ``(9, Cout, Cin)`` with Cin padded
 as the activations are (:func:`packed_weight`, made once per weight tensor
@@ -171,15 +179,35 @@ def conv3x3_int8_acc_plain(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     return acc.permute(0, 2, 3, 1).to(torch.int32)
 
 
+def _dequant(acc: torch.Tensor, deq: torch.Tensor, b: torch.Tensor,
+             apply_relu: bool) -> torch.Tensor:
+    """The int8 epilogue's f32 value ``acc·deq + b`` (ReLU optional) in
+    separate PyTorch ops, so no FMA."""
+    y = acc.float() * deq.float() + b.float()
+    return torch.relu(y) if apply_relu else y
+
+
 def conv3x3_relu_int8_plain(x: torch.Tensor, w8: torch.Tensor, sx,
                             deq: torch.Tensor, b: torch.Tensor,
                             apply_relu: bool = True) -> torch.Tensor:
-    """Plain version of the int8 mode; separate PyTorch ops, so no FMA."""
+    """Plain version of the int8 mode."""
     acc = conv3x3_int8_acc_plain(quantize_act(x, sx), w8)
-    y = acc.float() * deq.float() + b.float()
-    if apply_relu:
-        y = torch.relu(y)
-    return y.to(torch.bfloat16).contiguous()
+    return _dequant(acc, deq, b, apply_relu).to(torch.bfloat16).contiguous()
+
+
+def requant_plain(acc: torch.Tensor, deq: torch.Tensor, b: torch.Tensor,
+                  apply_relu: bool = True) -> torch.Tensor:
+    """int32 sums → ``clip(rint(relu(f32(acc)·deq + b)), -127, 127)`` int8,
+    rounding half to even."""
+    y = _dequant(acc, deq, b, apply_relu)
+    return torch.round(y).clamp(-127, 127).to(torch.int8).contiguous()
+
+
+def conv3x3_int8_q_plain(x8: torch.Tensor, w8: torch.Tensor, deq: torch.Tensor,
+                         b: torch.Tensor, apply_relu: bool = True) -> torch.Tensor:
+    """Plain version of :func:`conv3x3_int8_q`: the exact int32 sums of
+    :func:`conv3x3_int8_acc_plain`, then :func:`requant_plain`."""
+    return requant_plain(conv3x3_int8_acc_plain(x8, w8), deq, b, apply_relu)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
@@ -329,3 +357,33 @@ def conv3x3_relu_int8(x: torch.Tensor, w8: torch.Tensor, sx,
 
 conv3x3_relu_int8.launches = 0
 conv3x3_relu_int8.mode_launches = {"per_tensor": 0, "per_channel": 0}
+
+
+def conv3x3_int8_q(x8: torch.Tensor, w8: torch.Tensor, deq: torch.Tensor, b: torch.Tensor,
+                   apply_relu: bool = True) -> torch.Tensor:
+    """x8 (B,H,W,Cin) int8 with Cin a multiple of 32, w8 (3,3,Cin,Cout)
+    int8, deq (Cout,) f32, b (Cout,) f32 → (B,H,W,Cout) int8
+    ``clip(rint(relu(acc·deq + b)), -127, 127)`` (the int8 mode's int8-out
+    variant; ``launches`` counts its own launches)."""
+    B, H, W, Cin, Cout = _conv_shapes(x8, w8)
+    if Cin % K_MULT["int8"]:
+        raise ValueError(f"x8: Cin {Cin} is not a multiple of {K_MULT['int8']} (the kernel "
+                         f"reads the int8 activations as they are)")
+    if x8.device.type == "cpu":
+        return conv3x3_int8_q_plain(x8, w8, deq, b, apply_relu)
+    _check(x8, "x", torch.int8, (B, H, W, Cin), x8.device)
+    _check(w8, "w8", torch.int8, (3, 3, Cin, Cout), x8.device)
+    _check(deq, "deq", torch.float32, (Cout,), x8.device)
+    _check(b, "b", torch.float32, (Cout,), x8.device)
+    k = _build.kernels()
+    wp = packed_weight(w8)
+    y8 = torch.empty((B, H, W, Cout), dtype=torch.int8, device=x8.device)
+    rc = k.s1s2k_conv3x3_int8_q(
+        x8.data_ptr(), wp.data_ptr(), deq.data_ptr(), b.data_ptr(), y8.data_ptr(),
+        B, H, W, Cin, Cout, int(apply_relu), x8.device.index, _build.stream(x8.device))
+    _build.check(rc, "conv3x3_int8_q")
+    conv3x3_int8_q.launches += 1
+    return y8
+
+
+conv3x3_int8_q.launches = 0

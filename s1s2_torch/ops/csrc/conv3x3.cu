@@ -18,6 +18,13 @@
 //     the epilogue acc * deq[co] + b[co] uses __fmul_rn and __fadd_rn (no
 //     FMA), ReLU, bf16, so the mode is bit-equal to its plain PyTorch
 //     version.
+//   - int8-out variant of the int8 mode (the fused requant of the probe's
+//     conv chain, tools/probe_pallas_int8.py:probe_conv): int8 in with Cin a
+//     multiple of 32, read by TMA as it is (no quantize pass), and the same
+//     epilogue followed by rint and a clip to [-127, 127], int8 out:
+//     y8 = clip(rint(relu(acc * deq[co] + b[co])), -127, 127). It is a
+//     uniform runtime flag of the int8 instances (out8), so it adds no
+//     template instance to the build.
 // Both modes read their weights K-major, (9, Cout, Cs) with Cs the
 // activations' channel count, repacked once per weight tensor from HWIO
 // (ops/conv3x3.py:packed_weight). TMA reads the rows of an N tile past Cout
@@ -326,14 +333,17 @@ quantize_pad_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ q,
 // Cs) int8), else bf16 mode (x bf16 (B,H,W,Cs), w (9, Cout, Cs) bf16); BN
 // the N tile, KB the chunk's bytes of each pixel. na: A buffers (1 or 2),
 // nst: weight stages (<= MAX_STAGES).
+//
+// out8 (int8 mode only): y is int8 (B,H,W,Cout), each output requantized
+// with rint and a clip to [-127, 127]; else y is bf16.
 template <int BN, int KB, bool I8>
 __device__ __forceinline__ void conv3x3_wgmma(const CUtensorMap* map_x,
                                               const CUtensorMap* map_w,
                                               const float* __restrict__ deq,
                                               const float* __restrict__ bias,
-                                              __nv_bfloat16* __restrict__ y, int H, int W,
+                                              void* __restrict__ y, int H, int W,
                                               int Cs, int Cout, int ntn, int tiles_w, int na,
-                                              int nst, int relu) {
+                                              int nst, int relu, int out8) {
   using Acc = typename std::conditional<I8, int, float>::type;
   constexpr int E = I8 ? 1 : 2;           // bytes per element
   constexpr int CK = KB / E;              // channels per chunk
@@ -484,7 +494,22 @@ __device__ __forceinline__ void conv3x3_wgmma(const CUtensorMap* map_x,
             v0 = fmaxf(v0, 0.0f);
             v1 = fmaxf(v1, 0.0f);
           }
-          __nv_bfloat16* out = y + (img_px + (size_t)oh * W + ow) * Cout + co;
+          const size_t at = (img_px + (size_t)oh * W + ow) * Cout + co;
+          if constexpr (I8) {
+            if (out8) {  // rint (ties to even) and the clip of the requant
+              const int q0 = min(max(__float2int_rn(v0), -127), 127);
+              const int q1 = min(max(__float2int_rn(v1), -127), 127);
+              int8_t* o8 = static_cast<int8_t*>(y) + at;
+              if (two && (Cout & 1) == 0) {
+                *reinterpret_cast<char2*>(o8) = make_char2((signed char)q0, (signed char)q1);
+              } else {
+                o8[0] = (int8_t)q0;
+                if (two) o8[1] = (int8_t)q1;
+              }
+              continue;
+            }
+          }
+          __nv_bfloat16* out = static_cast<__nv_bfloat16*>(y) + at;
           if (two && (Cout & 1) == 0) {
             *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v0, v1);
           } else {
@@ -500,19 +525,19 @@ __device__ __forceinline__ void conv3x3_wgmma(const CUtensorMap* map_x,
 #define CONV_ARGS                                                                         \
   const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,   \
       const float *__restrict__ deq, const float *__restrict__ bias,                      \
-      __nv_bfloat16 *__restrict__ y, int H, int W, int Cs, int Cout, int ntn, int tiles_w, \
-      int na, int nst, int relu
+      void *__restrict__ y, int H, int W, int Cs, int Cout, int ntn, int tiles_w,          \
+      int na, int nst, int relu, int out8
 
 template <int BN, int KB>
 __global__ void __launch_bounds__(NT, 1) conv3x3_bf16_kernel(CONV_ARGS) {
   conv3x3_wgmma<BN, KB, false>(&map_x, &map_w, deq, bias, y, H, W, Cs, Cout, ntn, tiles_w, na,
-                               nst, relu);
+                               nst, relu, 0);
 }
 
 template <int BN, int KB>
 __global__ void __launch_bounds__(NT, 1) conv3x3_int8_kernel(CONV_ARGS) {
   conv3x3_wgmma<BN, KB, true>(&map_x, &map_w, deq, bias, y, H, W, Cs, Cout, ntn, tiles_w, na,
-                              nst, relu);
+                              nst, relu, out8);
 }
 
 // The launch plan (mirrored by ops/conv3x3.py:conv_plan): the N tile, the
@@ -623,8 +648,8 @@ cudaError_t tensor_map(const MapKey& k, CUtensorMap* out) {
 // per device, then the launch.
 template <int BN, int KB, bool I8>
 cudaError_t launch_bn(const CUtensorMap& mx, const CUtensorMap& mw, const float* deq,
-                      const float* bias, __nv_bfloat16* y, int B, int H, int W, int Cs,
-                      int Cout, const Plan& p, int relu, int device, cudaStream_t s) {
+                      const float* bias, void* y, int B, int H, int W, int Cs, int Cout,
+                      const Plan& p, int relu, int out8, int device, cudaStream_t s) {
   static uint64_t raised = 0;  // a bit per device
   {
     std::lock_guard<std::mutex> lock(cache_mu);
@@ -642,27 +667,27 @@ cudaError_t launch_bn(const CUtensorMap& mx, const CUtensorMap& mw, const float*
   const dim3 grid((unsigned)(((H + TH - 1) / TH) * tiles_w * p.ntn), (unsigned)B);
   if constexpr (I8)
     conv3x3_int8_kernel<BN, KB><<<grid, NT, p.smem, s>>>(mx, mw, deq, bias, y, H, W, Cs, Cout,
-                                                     p.ntn, tiles_w, p.na, p.nst, relu);
+                                                     p.ntn, tiles_w, p.na, p.nst, relu, out8);
   else
     conv3x3_bf16_kernel<BN, KB><<<grid, NT, p.smem, s>>>(mx, mw, deq, bias, y, H, W, Cs, Cout,
-                                                     p.ntn, tiles_w, p.na, p.nst, relu);
+                                                     p.ntn, tiles_w, p.na, p.nst, relu, 0);
   return cudaGetLastError();
 }
 
 // The plan's N tile, for a chunk of KB bytes.
 template <int KB, bool I8>
 cudaError_t launch_kb(const CUtensorMap& mx, const CUtensorMap& mw, const float* deq,
-                      const float* bias, __nv_bfloat16* y, int B, int H, int W, int Cs,
-                      int Cout, const Plan& p, int relu, int device, cudaStream_t s) {
+                      const float* bias, void* y, int B, int H, int W, int Cs, int Cout,
+                      const Plan& p, int relu, int out8, int device, cudaStream_t s) {
   switch (p.bn) {
-    case 16: return launch_bn<16, KB, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, device, s);
-    case 24: return launch_bn<24, KB, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, device, s);
-    case 32: return launch_bn<32, KB, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, device, s);
-    case 48: return launch_bn<48, KB, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, device, s);
-    case 64: return launch_bn<64, KB, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, device, s);
-    case 96: return launch_bn<96, KB, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, device, s);
+    case 16: return launch_bn<16, KB, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, out8, device, s);
+    case 24: return launch_bn<24, KB, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, out8, device, s);
+    case 32: return launch_bn<32, KB, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, out8, device, s);
+    case 48: return launch_bn<48, KB, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, out8, device, s);
+    case 64: return launch_bn<64, KB, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, out8, device, s);
+    case 96: return launch_bn<96, KB, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, out8, device, s);
     default:
-      return launch_bn<N_MAX, KB, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, device, s);
+      return launch_bn<N_MAX, KB, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, out8, device, s);
   }
 }
 
@@ -685,8 +710,8 @@ cudaError_t set_device(int device) {
 // the launch of the plan's kernel.
 template <bool I8>
 cudaError_t launch(const void* x, const void* w, const float* deq,
-                   const float* bias, __nv_bfloat16* y, int B, int H, int W, int Cs, int Cout,
-                   int relu, int device, cudaStream_t s) {
+                   const float* bias, void* y, int B, int H, int W, int Cs, int Cout,
+                   int relu, int out8, int device, cudaStream_t s) {
   constexpr int E = I8 ? 1 : 2;
   const Plan p = plan(I8, Cs, Cout);
   if (p.smem > SMEM_DYN || p.nst < 2 || (Cs * E) % 16 ||
@@ -701,10 +726,13 @@ cudaError_t launch(const void* x, const void* w, const float* deq,
                     {(uint32_t)(p.kb / E), (uint32_t)p.bn, 1u, 0u}, 3, E}, &mw);
   if (err != cudaSuccess) return err;
   switch (p.kb) {
-    case 32: return launch_kb<32, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, device, s);
-    case 64: return launch_kb<64, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, device, s);
+    case 32:
+      return launch_kb<32, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, out8, device, s);
+    case 64:
+      return launch_kb<64, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, out8, device, s);
     default:
-      return launch_kb<128, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, device, s);
+      return launch_kb<128, I8>(mx, mw, deq, bias, y, B, H, W, Cs, Cout, p, relu, out8, device,
+                                s);
   }
 }
 
@@ -722,9 +750,8 @@ int s1s2k_conv3x3_bf16(const void* x, const void* w, const void* bias, void* y,
   if (!conv_args_ok(B, H, W, Cin, Cout, device) || Cin % 8) return (int)cudaErrorInvalidValue;
   cudaError_t err = set_device(device);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch<false>(x, w, nullptr, static_cast<const float*>(bias),
-                            static_cast<__nv_bfloat16*>(y), B, H, W, Cin, Cout, relu, device,
-                            (cudaStream_t)stream);
+  return (int)launch<false>(x, w, nullptr, static_cast<const float*>(bias), y, B, H, W, Cin,
+                            Cout, relu, 0, device, (cudaStream_t)stream);
 }
 
 // x8: scratch of B*H*W*round_up(Cin, 32) bytes; w8p: (9, Cout, round_up(Cin,
@@ -753,8 +780,24 @@ int s1s2k_conv3x3_int8(const void* x, void* x8, const void* w8p, const void* deq
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch<true>(x8, w8p, static_cast<const float*>(deq),
-                           static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y),
-                           B, H, W, Cs, Cout, relu, device, s);
+                           static_cast<const float*>(bias), y, B, H, W, Cs, Cout, relu, 0,
+                           device, s);
+}
+
+// The int8-out variant: x8 (B, H, W, Cin) int8 with Cin a multiple of 32,
+// read as it is (no quantize pass); w8p (9, Cout, Cin) int8
+// (ops/conv3x3.py:packed_weight); deq and bias (Cout,) f32; y8 (B, H, W,
+// Cout) int8 = clip(rint(relu(acc * deq + bias)), -127, 127), relu optional.
+// x8 and w8p start on 16-byte boundaries.
+int s1s2k_conv3x3_int8_q(const void* x8, const void* w8p, const void* deq, const void* bias,
+                         void* y8, int B, int H, int W, int Cin, int Cout, int relu,
+                         int device, void* stream) {
+  if (!conv_args_ok(B, H, W, Cin, Cout, device) || Cin % 32) return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_device(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch<true>(x8, w8p, static_cast<const float*>(deq),
+                           static_cast<const float*>(bias), y8, B, H, W, Cin, Cout, relu, 1,
+                           device, (cudaStream_t)stream);
 }
 
 // The plan a conv of Cs input channels as the kernel reads them (bf16: a

@@ -18,7 +18,8 @@ they are the JAX tool's threefry bits.
 The bound: a forward's 13 3×3 convs do 2·9·Cin·Cout·H·W operations each
 (2.94e11 a 256² base-96 sample); a step does three times that (the forward
 and the backward's two products), four with remat (the forward again),
-over the card's bf16 peak (``PEAK_BF16_OPS_PER_S``, H100 SXM, dense).
+over the card's bf16 peak (``bench_conv.PEAK_OPS_PER_S["bf16"]``, H100 SXM,
+dense).
 """
 
 from __future__ import annotations
@@ -33,9 +34,9 @@ import torch
 from s1s2_torch.core import random
 from s1s2_torch.core.schedule import Schedule
 from s1s2_torch.models.unet import UNetSmall, init_params
+from s1s2_torch.tools.bench_conv import PEAK_OPS_PER_S
 from s1s2_torch.train.loop import TrainConfig, create_train_state, make_train_step
 
-PEAK_BF16_OPS_PER_S = 989e12
 CC = CT = 4
 
 
@@ -97,7 +98,7 @@ def bench(B: int, remat: bool = False, iters: int = 10, size: int = 256, base_ch
     loss = float(m["loss"])  # waits for the last step
     dt = time.perf_counter() - t0
     pps = B * iters / dt
-    bound_pps = PEAK_BF16_OPS_PER_S / step_ops_per_sample(base_ch, size, remat)
+    bound_pps = PEAK_OPS_PER_S["bf16"] / step_ops_per_sample(base_ch, size, remat)
     return {"B": B, "remat": remat, "train_patches_per_s": pps,
             "bound_share": pps / bound_pps if cuda else None,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,

@@ -54,25 +54,41 @@ def _device_us(evt) -> float:
 BATCH, ITERS = 128, 10
 
 
-def profile(step: Callable[[], object], iters: int, warmup: int, trace: str = "") -> Dict:
+def profile(step: Callable[[], object], iters: int, warmup: int, trace: str = "",
+            device="cuda") -> Dict:
     """``warmup`` untimed calls of ``step``, then ``iters`` under the profiler:
-    per call the wall time on CUDA events and the device time by kernel."""
+    per call the wall time on CUDA events and the device time by kernel.
+    On the CPU (``device="cpu"``, for a run at a tiny size) only the host
+    is traced: the rows are operators by their own host time, and the wall
+    time is the host's clock (no device time, no idle share)."""
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
     for _ in range(warmup):
         step()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sync()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.profiler.profile(activities=acts) as prof:
-        start.record()
+        t0 = time.perf_counter()
+        if cuda:
+            start.record()
         for _ in range(iters):
             step()
-        end.record()
-        torch.cuda.synchronize()
-    wall_ms = start.elapsed_time(end) / iters
+        if cuda:
+            end.record()
+        sync()
+        host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    wall_ms = start.elapsed_time(end) / iters if cuda else host_ms
     rows: List[Dict] = []
     for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0 and getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+        if cuda:
+            us = _device_us(evt)
+            keep = getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA
+        else:
+            us, keep = float(evt.self_cpu_time_total), True
+        if us > 0 and keep:
             rows.append({"name": evt.key, "ms": us / 1e3 / iters,
                          "calls": evt.count / iters,
                          "ours": any(k in evt.key for k in OURS)})
@@ -80,10 +96,10 @@ def profile(step: Callable[[], object], iters: int, warmup: int, trace: str = ""
     busy = sum(r["ms"] for r in rows)
     if trace:
         prof.export_chrome_trace(trace)
-    return {"device": torch.cuda.get_device_name(0), "iters": iters,
+    return {"device": torch.cuda.get_device_name(0) if cuda else "cpu", "iters": iters,
             "wall_ms": wall_ms, "kernel_ms": busy,
             "ours_ms": sum(r["ms"] for r in rows if r["ours"]),
-            "idle_share": max(0.0, 1.0 - busy / wall_ms), "kernels": rows}
+            "idle_share": max(0.0, 1.0 - busy / wall_ms) if cuda else None, "kernels": rows}
 
 
 def breakdown(trace: str = "") -> Dict:

@@ -13,8 +13,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from s1s2_torch.ops.conv3x3 import (conv3x3_relu, conv3x3_relu_int8,
-                                    conv3x3_relu_int8_plain, conv3x3_relu_plain)
+from s1s2_torch.ops.conv3x3 import (conv3x3_int8_q, conv3x3_int8_q_plain, conv3x3_relu,
+                                    conv3x3_relu_int8, conv3x3_relu_int8_plain,
+                                    conv3x3_relu_plain)
 from s1s2_torch.ops.fused_elementwise import (ddim_coefs, ddim_update_plain,
                                               fused_ddim_update)
 from s1s2_torch.ops.halo import halo_rows_x2, halo_rows_x2_plain
@@ -96,6 +97,29 @@ def test_gpu_conv_awkward_shapes(cuda, Ci, Co, HW):
     for relu in (True, False):
         assert torch.equal(conv3x3_relu_int8(x, w8, sx, deq, b, relu),
                            conv3x3_relu_int8_plain(x, w8, sx, deq, b, relu))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Ci,Co", chip_smoke.INT8Q_SHAPES)
+@pytest.mark.parametrize("probe", [True, False])
+def test_gpu_conv_int8_out_bit_equal(cuda, B, H, Ci, Co, probe):
+    """The int8-out mode: the probe's requant, or per-channel scales, a wide
+    bias and no ReLU (clipping at both ends)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x8, w8, deq, b = chip_smoke.int8q_operands(torch, B, H, Ci, Co, cuda, g, probe)
+    got = conv3x3_int8_q(x8, w8, deq, b, apply_relu=probe)
+    assert got.dtype == torch.int8
+    assert torch.equal(got, conv3x3_int8_q_plain(x8, w8, deq, b, apply_relu=probe))
+
+
+@pytest.mark.gpu
+def test_gpu_probe_int8_chain_bit_equal(cuda):
+    from s1s2_torch.tools import probe_int8
+
+    x, w = probe_int8.conv_operands((2, 64, 64, 128), cuda)
+    x8, w8 = probe_int8.int8_toward_zero(x * 16), probe_int8.int8_toward_zero(w * 160)
+    assert torch.equal(probe_int8.chain_int8(x8, w8),
+                       probe_int8.chain_int8(x8, w8, conv=conv3x3_int8_q_plain))
 
 
 @pytest.mark.gpu

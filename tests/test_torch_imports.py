@@ -7,6 +7,7 @@ that imports PIL, inside a function, and no module imports it."""
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -55,11 +56,52 @@ def test_no_blocked_import_in_source(path):
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_mesh_or_multi_process_option_is_refused(path):
-    """ROADMAP §1 item 7c is ported: no "not ported" message of it is left.
-    Item 7d's tools that the port refuses keep theirs, under their number."""
+    """ROADMAP §1 item 7c is ported: no "not ported" message of it is left
+    (and since item 7d none at all: test_no_not_ported_message_is_left)."""
     text = path.read_text()
     for phrase in ("item 7c", "7, 7c", "(ROADMAP §1 item 7)", "item 7 (7c)"):
         assert phrase not in text, phrase
+
+
+NOT_PORTED = re.compile(r"not\s+(yet\s+)?ported|ported\s+yet", re.IGNORECASE)
+
+
+@pytest.mark.parametrize("path", PORT_FILES + sorted((REPO / "s1s2_torch").rglob("*.sh")),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_not_ported_message_is_left(path):
+    """Everything is ported (ROADMAP §1 item 7d was the last item): no
+    module, tool or the smoke run still refuses a path as not ported."""
+    hits = [ln for ln in path.read_text().splitlines() if NOT_PORTED.search(ln)]
+    assert not hits, hits
+
+
+# the JAX tools that have no file of the same name under s1s2_torch/tools/,
+# and the port's file that covers each (ROADMAP §1)
+COVERED_ELSEWHERE = {
+    "bench_cfg.py": "s1s2_torch/bench.py",  # S1S2_BENCH_CFG=1
+    "bench_width_ladder.py": "s1s2_torch/bench.py",  # S1S2_BENCH_WIDTHS=1
+    "bench_distill_throughput.py": "s1s2_torch/headline.py",  # run_headline(spec, batch)
+    "bench_pallas_conv.py": "s1s2_torch/tools/bench_conv.py",  # and chip_smoke.py 5-5b
+    "probe_pallas_int8.py": "s1s2_torch/tools/probe_int8.py",
+    "rasterio_shim.py": "tests/test_torch_patchify.py",  # stays in tools/, driven there
+}
+JAX_TOOLS = sorted(p.name for p in (REPO / "tools").iterdir()
+                   if p.suffix in (".py", ".sh") and p.name != "__init__.py")
+
+
+@pytest.mark.parametrize("name", JAX_TOOLS)
+def test_every_jax_tool_has_a_twin(name):
+    """Each file of the JAX package's tools/ has a twin of the same name
+    under s1s2_torch/tools/, or a port file that covers it."""
+    twin = REPO / "s1s2_torch" / "tools" / name
+    if name in COVERED_ELSEWHERE:
+        assert not twin.exists(), f"{name} has a twin: drop its COVERED_ELSEWHERE entry"
+        cover = REPO / COVERED_ELSEWHERE[name]
+        assert cover.is_file(), cover
+        if name == "rasterio_shim.py":
+            assert "rasterio_shim" in cover.read_text()
+    else:
+        assert twin.is_file(), f"tools/{name} has no twin under s1s2_torch/tools/"
 
 
 def test_port_has_the_mirrored_layout():
@@ -306,7 +348,11 @@ def test_port_runs_with_jax_flax_msgpack_ml_dtypes_and_s1s2_blocked():
             "s1s2_torch.cli.convert_ckpt", "s1s2_torch.cli.patchify",
             "s1s2_torch.tools.archive_ckpt", "s1s2_torch.tools.bench_patchify",
             "s1s2_torch.tools.demo_distill_viz", "s1s2_torch.parallel",
-            "s1s2_torch.parallel.mesh", "s1s2_torch.parallel.comm"} <= set(out["modules"])
+            "s1s2_torch.parallel.mesh", "s1s2_torch.parallel.comm",
+            "s1s2_torch.tools.roofline", "s1s2_torch.tools.profile_forward",
+            "s1s2_torch.tools.bench_width_throughput", "s1s2_torch.tools.bench_variants",
+            "s1s2_torch.tools.bench_quality_matched",
+            "s1s2_torch.tools.puregen_table"} <= set(out["modules"])
     assert out["up_convs"] == ["up1", "up2", "up3"] and out["up_forward"] == [2, 16, 16, 4]
     assert out["scene_shape"] == [4, 40, 40] and out["served"] == [3, 16, 16, 4]
     assert out["bench_int8_paths"] == ["bf16", "int8", "int8_quant_up"]
