@@ -12,6 +12,8 @@ import enum
 
 import torch
 
+from s1s2_torch.utils.profiling import spanned
+
 
 class Parameterization(str, enum.Enum):
     """What the denoiser network predicts."""
@@ -27,6 +29,7 @@ def _bcast(coef, like: torch.Tensor) -> torch.Tensor:
     return coef.reshape(coef.shape + (1,) * (like.dim() - coef.dim()))
 
 
+@spanned("q_sample")
 def q_sample(x0, noise, sqrt_ab, sqrt_1mab) -> torch.Tensor:
     """x_t = √ᾱ_t·x0 + √(1−ᾱ_t)·ε."""
     return _bcast(sqrt_ab, x0) * x0.float() + _bcast(sqrt_1mab, x0) * noise.float()

@@ -42,6 +42,7 @@ from s1s2_torch.ops.pixel_shuffle import (depth_to_space, ps_conv_transpose_2x2,
                                           ps_conv_transpose_2x2_int8, ps_int8_weight)
 from s1s2_torch.train.checkpoint import load_params, msgpack_serialize
 from s1s2_torch.train.checkpoint import nest as _nest
+from s1s2_torch.utils.profiling import span
 
 Scale = Union[float, torch.Tensor]
 
@@ -323,7 +324,8 @@ def make_quant_denoise_fn(qp: QuantParams, cond: torch.Tensor):
     cond = cond.float()
 
     def fn(x_t, t):
-        return quant_apply(qp, torch.cat([x_t.float(), cond], dim=-1), t)
+        with span("model.forward"):
+            return quant_apply(qp, torch.cat([x_t.float(), cond], dim=-1), t)
 
     return fn
 

@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from s1s2_torch.ops import _build
+from s1s2_torch.utils.profiling import spanned
 
 # the channel multiple of each mode's activations and weight rows: 16-byte
 # pixel rows for TMA, 32 int8 channels (a k-step) for the quantized copy
@@ -292,6 +293,7 @@ def _conv_shapes(x: torch.Tensor, w: torch.Tensor, padded_input: bool = False):
     return B, H, W, w.shape[2], w.shape[3]
 
 
+@spanned("kernel.conv3x3_relu")
 def conv3x3_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  apply_relu: bool = True, padded_input: bool = False) -> torch.Tensor:
     """x (B,H,W,Cin), w (3,3,Cin,Cout), b (Cout,) f32 → (B,H,W,Cout) in
@@ -323,6 +325,7 @@ def conv3x3_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 conv3x3_relu.launches = 0
 
 
+@spanned("kernel.conv3x3_relu_int8")
 def conv3x3_relu_int8(x: torch.Tensor, w8: torch.Tensor, sx,
                       deq: torch.Tensor, b: torch.Tensor,
                       apply_relu: bool = True) -> torch.Tensor:
@@ -359,6 +362,7 @@ conv3x3_relu_int8.launches = 0
 conv3x3_relu_int8.mode_launches = {"per_tensor": 0, "per_channel": 0}
 
 
+@spanned("kernel.conv3x3_int8_q")
 def conv3x3_int8_q(x8: torch.Tensor, w8: torch.Tensor, deq: torch.Tensor, b: torch.Tensor,
                    apply_relu: bool = True) -> torch.Tensor:
     """x8 (B,H,W,Cin) int8 with Cin a multiple of 32, w8 (3,3,Cin,Cout)

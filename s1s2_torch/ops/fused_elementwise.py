@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from s1s2_torch.ops import _build
+from s1s2_torch.utils.profiling import spanned
 
 
 def ddim_coefs(a_cur: float, a_next: float) -> Tuple[float, float, float, float]:
@@ -38,6 +39,7 @@ def ddim_update_plain(x: torch.Tensor, eps: torch.Tensor, s1m: float, sabg: floa
     return x0, sabn * x0 + s1mn * eps
 
 
+@spanned("kernel.fused_ddim_update")
 def fused_ddim_update(x: torch.Tensor, eps: torch.Tensor, s1m: float, sabg: float,
                       sabn: float, s1mn: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (x0, xn), f32 tensors of x's shape."""

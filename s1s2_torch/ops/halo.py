@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from s1s2_torch.ops import _build
+from s1s2_torch.utils.profiling import spanned
 
 
 def halo_rows_x2_plain(x: torch.Tensor) -> torch.Tensor:
@@ -30,6 +31,7 @@ def halo_rows_x2_plain(x: torch.Tensor) -> torch.Tensor:
     return x[1:-1] * 2.0
 
 
+@spanned("kernel.halo_rows_x2")
 def halo_rows_x2(x: torch.Tensor, th: int = 32) -> torch.Tensor:
     """x (H, W, C) f32 → (H−2, W, C) f32 with ``out[r] = 2·x[r + 1]``, in row
     tiles of ``th`` output rows."""

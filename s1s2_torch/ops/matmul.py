@@ -37,6 +37,7 @@ from typing import Optional
 import torch
 
 from s1s2_torch.ops import _build
+from s1s2_torch.utils.profiling import spanned
 
 TILE_M = TILE_N = 128
 TILE_K = {torch.bfloat16: 32, torch.int8: 64}
@@ -87,6 +88,7 @@ def b_scratch(b: torch.Tensor) -> Optional[torch.Tensor]:
     return b.new_empty((N, K))
 
 
+@spanned("kernel.matmul")
 def matmul(a: torch.Tensor, b: torch.Tensor,
            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """a (M, K), b (K, N) → (M, N) in ``out_dtype``. Raises on a shape that
@@ -157,6 +159,7 @@ def matmul_int8_packed_plain(a: torch.Tensor, bt: torch.Tensor, n: int) -> torch
     return matmul_plain(a, bt[:n, :K].t(), torch.int32)
 
 
+@spanned("kernel.matmul_int8_packed")
 def matmul_int8_packed(a: torch.Tensor, bt: torch.Tensor, n: int) -> torch.Tensor:
     """a (M, K) int8 against ``bt = pack_int8_b(b)`` for a (K, n) b → (M, n)
     int32, exact. On a card A is zero-padded to (M rounded up to 128, the

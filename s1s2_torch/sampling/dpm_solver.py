@@ -24,6 +24,7 @@ import torch
 from s1s2_torch.core.parametrize import Parameterization, pred_to_x0_eps
 from s1s2_torch.core.schedule import Schedule
 from s1s2_torch.sampling.samplers import DenoiseFn
+from s1s2_torch.utils.profiling import span, spanned
 
 
 def dpm_coefs(schedule: Schedule, grid: np.ndarray):
@@ -44,6 +45,7 @@ def dpm_coefs(schedule: Schedule, grid: np.ndarray):
             f32(1.0 / (2.0 * (h_prev / h))))
 
 
+@spanned("sampler.call")
 def dpm_solver_2m(denoise_fn: DenoiseFn, x_init: torch.Tensor, schedule: Schedule,
                   grid: np.ndarray, param: Parameterization = Parameterization.EPS,
                   clip: Tuple[float, float] = (0.0, 1.0)) -> torch.Tensor:
@@ -57,16 +59,19 @@ def dpm_solver_2m(denoise_fn: DenoiseFn, x_init: torch.Tensor, schedule: Schedul
     B = x_init.shape[0]
     x_t, x0_prev = x_init.float(), None
     for i in range(len(t_s)):
-        t = torch.full((B,), int(t_s[i]), dtype=torch.int32, device=x_t.device)
-        x0, _ = pred_to_x0_eps(param, x_t, denoise_fn(x_t, t), float(sab[i]), float(s1m[i]))
-        if x0_prev is None:
-            d = x0
-        else:
-            w = np.float32(1.0) + inv2r[i]  # (1 + 1/2r) in f32
-            d = float(w) * x0 - float(inv2r[i]) * x0_prev
-        x_t, x0_prev = float(sr[i]) * x_t - float(a_phi[i]) * d, x0
+        with span("sampler.step"):
+            t = torch.full((B,), int(t_s[i]), dtype=torch.int32, device=x_t.device)
+            x0, _ = pred_to_x0_eps(param, x_t, denoise_fn(x_t, t), float(sab[i]),
+                                   float(s1m[i]))
+            if x0_prev is None:
+                d = x0
+            else:
+                w = np.float32(1.0) + inv2r[i]  # (1 + 1/2r) in f32
+                d = float(w) * x0 - float(inv2r[i]) * x0_prev
+            x_t, x0_prev = float(sr[i]) * x_t - float(a_phi[i]) * d, x0
     ab0 = float(schedule.alpha_bar_np().astype(np.float64)[grid[0]])
-    t0 = torch.full((B,), int(grid[0]), dtype=torch.int32, device=x_t.device)
-    x0, _ = pred_to_x0_eps(param, x_t, denoise_fn(x_t, t0),
-                           float(np.float32(np.sqrt(ab0))), float(np.float32(np.sqrt(1.0 - ab0))))
+    with span("sampler.step"):
+        t0 = torch.full((B,), int(grid[0]), dtype=torch.int32, device=x_t.device)
+        x0, _ = pred_to_x0_eps(param, x_t, denoise_fn(x_t, t0), float(np.float32(np.sqrt(ab0))),
+                               float(np.float32(np.sqrt(1.0 - ab0))))
     return torch.clamp(x0, clip[0], clip[1])

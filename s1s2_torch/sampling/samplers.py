@@ -32,6 +32,7 @@ from s1s2_torch.core.parametrize import Parameterization, pred_to_x0_eps, q_samp
 from s1s2_torch.core.schedule import Schedule
 from s1s2_torch.ops.fused_elementwise import fused_ddim_update
 from s1s2_torch.sampling.grids import clamp_t, linspace_grid
+from s1s2_torch.utils.profiling import span, spanned
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -42,7 +43,7 @@ def make_denoise_fn(model: Callable, cond: torch.Tensor) -> DenoiseFn:
     cond = cond.float()
 
     def fn(x_t, t):
-        with torch.no_grad():
+        with span("model.forward"), torch.no_grad():
             return model(torch.cat([x_t.float(), cond], dim=-1), t)
 
     return fn
@@ -59,11 +60,11 @@ def make_cfg_denoise_fn(model: Callable, cond: torch.Tensor, guidance_scale: flo
     g = float(guidance_scale)
 
     def fn(x_t, t):
-        x2 = torch.cat([x_t, x_t], dim=0).float()
-        with torch.no_grad():
+        with span("model.forward"), torch.no_grad():
+            x2 = torch.cat([x_t, x_t], dim=0).float()
             pred = model(torch.cat([x2, both], dim=-1), torch.cat([t, t], dim=0))
-        pc, pu = torch.chunk(pred, 2, dim=0)
-        return pu + g * (pc - pu)
+            pc, pu = torch.chunk(pred, 2, dim=0)
+            return pu + g * (pc - pu)
 
     return fn
 
@@ -128,9 +129,10 @@ def _ddim_linspace_scan(denoise_fn: DenoiseFn, x_init: torch.Tensor,
     for i in range(len(ts) - 1):
         if return_traj:
             traj.append(x)
-        eps = denoise_fn(x, _t_vec(ts[i], B, x.device)).float().contiguous()
-        x0_hat, x = fused_ddim_update(x, eps, float(s1m[i]), float(sabg[i]),
-                                      float(sabn[i]), float(s1mn[i]))
+        with span("sampler.step"):
+            eps = denoise_fn(x, _t_vec(ts[i], B, x.device)).float().contiguous()
+            x0_hat, x = fused_ddim_update(x, eps, float(s1m[i]), float(sabg[i]),
+                                          float(sabn[i]), float(s1mn[i]))
     out = torch.clamp(x0_hat, clip[0], clip[1])
     if return_traj:
         t_steps = torch.as_tensor(ts[:-1].astype(np.int32), device=out.device)
@@ -138,6 +140,7 @@ def _ddim_linspace_scan(denoise_fn: DenoiseFn, x_init: torch.Tensor,
     return out
 
 
+@spanned("sampler.call")
 def ddim_anchored(denoise_fn: DenoiseFn, x_gt: torch.Tensor, schedule: Schedule,
                   t_start: int = 200, steps: int = 20,
                   clip: Tuple[float, float] = (0.0, 1.0),
@@ -157,6 +160,7 @@ def ddim_anchored(denoise_fn: DenoiseFn, x_gt: torch.Tensor, schedule: Schedule,
     return _ddim_linspace_scan(denoise_fn, x_t, schedule, t_start, steps, clip)
 
 
+@spanned("sampler.call")
 def ddim_generate(denoise_fn: DenoiseFn, shape: Tuple[int, ...], schedule: Schedule,
                   t_start: int = 200, steps: int = 20,
                   clip: Tuple[float, float] = (0.0, 1.0),
@@ -178,6 +182,7 @@ def ddim_generate(denoise_fn: DenoiseFn, shape: Tuple[int, ...], schedule: Sched
 # ---------------------------------------------------------------------------
 
 
+@spanned("sampler.call")
 def ddim_grid_sample(denoise_fn: DenoiseFn, x_init: torch.Tensor, schedule: Schedule,
                      grid: np.ndarray, param: Parameterization = Parameterization.V,
                      eta: float = 0.0, clip: Tuple[float, float] = (0.0, 1.0),
@@ -232,27 +237,28 @@ def ddim_grid_sample(denoise_fn: DenoiseFn, x_init: torch.Tensor, schedule: Sche
     for i in range(n):
         if return_traj:
             traj.append(x_t)
-        pred = denoise_fn(x_t, _t_vec(t_cur[i], B, x_t.device))
-        x0_pred, eps_pred = pred_to_x0_eps(param, x_t, pred, float(sab[i]), float(s1m[i]))
-        if i == n - 1:
-            x_t = x0_pred
-            break
-        x_next = float(sab_p[i]) * x0_pred + float(dirt[i]) * eps_pred
-        if eta > 0:
-            if noise is not None:
-                z = noise[i].to(x_t.device, torch.float32)
-            elif step_keys is not None:
-                shape = tuple(x_t.shape[1:]) if step_keys.ndim == 3 else tuple(x_t.shape)
-                if batch_rows is not None and step_keys.ndim == 2:
-                    shape = (batch_rows[1],) + shape[1:]
-                z = random.normal(step_keys[i], shape)
-                if batch_rows is not None and step_keys.ndim == 2:
-                    z = z[batch_rows[0]]
-                z = torch.from_numpy(np.ascontiguousarray(z)).to(x_t.device)
-            else:
-                z = _randn(x_t.shape, generator, x_t.device)
-            x_next = x_next + float(sig[i]) * z
-        x_t = x_next
+        with span("sampler.step"):
+            pred = denoise_fn(x_t, _t_vec(t_cur[i], B, x_t.device))
+            x0_pred, eps_pred = pred_to_x0_eps(param, x_t, pred, float(sab[i]), float(s1m[i]))
+            if i == n - 1:
+                x_t = x0_pred
+                break
+            x_next = float(sab_p[i]) * x0_pred + float(dirt[i]) * eps_pred
+            if eta > 0:
+                if noise is not None:
+                    z = noise[i].to(x_t.device, torch.float32)
+                elif step_keys is not None:
+                    shape = tuple(x_t.shape[1:]) if step_keys.ndim == 3 else tuple(x_t.shape)
+                    if batch_rows is not None and step_keys.ndim == 2:
+                        shape = (batch_rows[1],) + shape[1:]
+                    z = random.normal(step_keys[i], shape)
+                    if batch_rows is not None and step_keys.ndim == 2:
+                        z = z[batch_rows[0]]
+                    z = torch.from_numpy(np.ascontiguousarray(z)).to(x_t.device)
+                else:
+                    z = _randn(x_t.shape, generator, x_t.device)
+                x_next = x_next + float(sig[i]) * z
+            x_t = x_next
     x_t = torch.clamp(x_t, clip[0], clip[1])
     if return_traj:
         t_steps = torch.as_tensor(t_cur.astype(np.int32), device=x_t.device)
@@ -275,6 +281,7 @@ def scaled_noise_init(shape: Tuple[int, ...], schedule: Schedule, t_start: int,
 # ---------------------------------------------------------------------------
 
 
+@spanned("sampler.call")
 def ddpm_ancestral(denoise_fn: DenoiseFn, shape: Tuple[int, ...], schedule: Schedule,
                    param: Parameterization = Parameterization.EPS,
                    clip: Tuple[float, float] = (0.0, 1.0),
@@ -317,16 +324,17 @@ def ddpm_ancestral(denoise_fn: DenoiseFn, shape: Tuple[int, ...], schedule: Sche
     x_t = draw(0)
     B = shape[0]
     for j, t in enumerate(order):
-        pred = denoise_fn(x_t, _t_vec(t, B, dev))
-        if param is Parameterization.EPS:
-            eps = pred.float()
-        else:
-            _, eps = pred_to_x0_eps(param, x_t, pred, float(sab[j]), float(s1m[j]))
-        mean = float(inv_sa[j]) * (x_t - float(coef[j]) * eps)
-        if t == 0:
-            x_t = mean
-            break
-        x_t = mean + float(scale[j]) * draw(j + 1)
+        with span("sampler.step"):
+            pred = denoise_fn(x_t, _t_vec(t, B, dev))
+            if param is Parameterization.EPS:
+                eps = pred.float()
+            else:
+                _, eps = pred_to_x0_eps(param, x_t, pred, float(sab[j]), float(s1m[j]))
+            mean = float(inv_sa[j]) * (x_t - float(coef[j]) * eps)
+            if t == 0:
+                x_t = mean
+                break
+            x_t = mean + float(scale[j]) * draw(j + 1)
     return torch.clamp(x_t, clip[0], clip[1])
 
 
@@ -335,6 +343,7 @@ def ddpm_ancestral(denoise_fn: DenoiseFn, shape: Tuple[int, ...], schedule: Sche
 # ---------------------------------------------------------------------------
 
 
+@spanned("sampler.call")
 def partial_ddim_from_gt(denoise_fn: DenoiseFn, x_gt: torch.Tensor, schedule: Schedule,
                          k: int, clip: Tuple[float, float] = (0.0, 1.0),
                          noise: Optional[torch.Tensor] = None,
@@ -353,12 +362,14 @@ def partial_ddim_from_gt(denoise_fn: DenoiseFn, x_gt: torch.Tensor, schedule: Sc
     s1mc, sabg = _f32(np.sqrt(1.0 - a_cur)), _f32(np.sqrt(a_cur + 1e-8))
     sabn, s1mn = _f32(np.sqrt(a_next)), _f32(np.sqrt(1.0 - a_next))
     for i in range(k):
-        eps = denoise_fn(x_t, _t_vec(grid[i], B, x_t.device)).float().contiguous()
-        _, x_t = fused_ddim_update(x_t, eps, float(s1mc[i]), float(sabg[i]),
-                                   float(sabn[i]), float(s1mn[i]))
+        with span("sampler.step"):
+            eps = denoise_fn(x_t, _t_vec(grid[i], B, x_t.device)).float().contiguous()
+            _, x_t = fused_ddim_update(x_t, eps, float(s1mc[i]), float(sabg[i]),
+                                       float(sabn[i]), float(s1mn[i]))
     return torch.clamp(x_t, clip[0], clip[1])
 
 
+@spanned("sampler.call")
 def one_step_recon(denoise_fn: DenoiseFn, x_gt: torch.Tensor, schedule: Schedule,
                    t_small: int = 20, param: Parameterization = Parameterization.EPS,
                    clip: Tuple[float, float] = (0.0, 1.0),
@@ -372,6 +383,7 @@ def one_step_recon(denoise_fn: DenoiseFn, x_gt: torch.Tensor, schedule: Schedule
     sab = torch.full((B,), float(schedule.sqrt_alpha_bar[t_small]))
     s1m = torch.full((B,), float(schedule.sqrt_one_minus_alpha_bar[t_small]))
     x_t = q_sample(x_gt, noise, sab, s1m)
-    pred = denoise_fn(x_t, _t_vec(t_small, B, x_gt.device))
-    x0_hat, _ = pred_to_x0_eps(param, x_t, pred, sab, s1m)
+    with span("sampler.step"):
+        pred = denoise_fn(x_t, _t_vec(t_small, B, x_gt.device))
+        x0_hat, _ = pred_to_x0_eps(param, x_t, pred, sab, s1m)
     return torch.clamp(x0_hat, clip[0], clip[1])

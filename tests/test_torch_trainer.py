@@ -200,8 +200,7 @@ def test_profile_dir_traces_epoch_one(patches, tmp_path):
 
 
 def test_step_timer_and_metrics_logger(tmp_path):
-    timer = profiling.StepTimer()
-    assert timer.tick() is None and timer.tick() > 0
+    assert not hasattr(profiling, "StepTimer")  # nothing of the port read it
     log = profiling.MetricsLogger(str(tmp_path / "d" / "m.jsonl"))
     log.log(a=1, b=np.float32(2.5))
     log.close()
