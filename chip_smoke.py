@@ -57,6 +57,11 @@ Phases, each printing its own seconds:
    Cout 16 and 32, at B=8 and 2 (ε net) and 4
    (v net), and the DDIM update on a padded batch, with phase 3's
    tolerances.
+3a. The stem pack (``ops/stem_pack.py``) at the cells' shapes
+   (``STEM_SHAPES``: the 24x4's x_t and cond apart at B=128 with the 4x
+   stem, base-96's concatenated input at B=64): the kernel and the
+   yardstick ``stem_library`` bit-equal to the plain version, each timed;
+   then channel counts off the kernel's 16-byte path and an 8x stem.
 3f. The int8 up-convs of ``quant_up`` (``ops/pixel_shuffle.
    ps_conv_transpose_2x2_int8``: the product on the matmul kernel's int8
    mode against the weight matrix packed once, zero-padded to its tiles) at
@@ -273,13 +278,17 @@ Phases, each printing its own seconds:
 
 Each path of 4-4p is driven with every launch count set to 0 just before it
 and read just after; a kernel of the path that was not launched fails it
-(4p(g) runs in child processes, whose launches are not counted).
+(4p(g) runs in child processes, whose launches are not counted). On the
+inference paths of ``STEM_PATHS`` the stem pack must launch once a forward,
+and exactly 105 times in each headline and 100 and 14 times in bench lines
+1 and 2.
 Then a ``{"kernels": [...]}`` line (the conv rows' times are those of the
 24x4 main path at B=128, and the per-channel int8 row's those of the CFG
 net's shapes at B=64, and the int8-out row's those of 5b; the matmul has a
 row per mode, bf16 → bf16 beside
 ``torch.matmul`` and int8 → int32 beside ``torch._int_mm``, and a row for
-its int8 mode on the packed up-conv weights of 4i; launches are summed over
+its int8 mode on the packed up-conv weights of 4i; the stem pack a row per
+shape of 3a, beside ``stem_library``; launches are summed over
 the paths), the card line
 again, and last ``{"ok": true, "device": {...}}``. Any failure raises, and
 no result is printed. The port's inference paths never call cuDNN,
@@ -315,6 +324,17 @@ MATMUL_SHAPES = ((512, 512, 512), (8192, 2048, 2048))  # (M, K, N)
 HALO_CASES = ((256, 128, 128, 32), (250, 128, 128, 32), (37, 5, 4, 7),  # (H, W, C, TH)
               (1026, 256, 128, 32))
 RUNGS = (("16x2", 0.33557), ("12", 0.34379))  # committed evidence MAEs
+# the stem pack at the cells' shapes: (label, B, side, x_t channels, cond
+# channels apart (0: one concatenated input), s)
+STEM_SHAPES = (("24x4 pair", BATCH, SIZE, 4, 4, STEM), ("base-96 one tensor", 64, SIZE, 8, 0, 1))
+# the paths whose every 3x3 conv launch is one of a UNet forward's 13, so
+# that each forward on the card launches the stem pack once:
+# stem_pack launches == (conv3x3_relu + conv3x3_relu_int8) / 13 (the
+# headlines' and bench lines' counts are also held to their exact values)
+STEM_PATHS = ("headline 24x4", "headline 16x2", "headline 12", "bench line 1", "bench line 2",
+              "cfg line", "width ladder", "full ddim eps", "full ddim v", "full ddim eps int8",
+              "full per_band", "full eps", "full vdiag", "full onestep", "quant_up",
+              "scene eps", "scene eps device stitch", "scene bench eps bf16", "scene bench int8")
 LADDER_SHAPES = ("64", "48", "32")  # the ladder's full-resolution students checked in 3d
 CFG_BF16_BLOCKS = bench_conv.CFG_BF16_BLOCKS  # the quality-equal CFG recipe's bf16 block
 CFG_CHECK_BATCH = bench_conv.CFG_BATCH  # the CFG sampler's forward: 2 x 32 stacked rows
@@ -370,10 +390,11 @@ CLOUDY_ZOOM, CLOUDY_ZOOM_K = 32, 2
 PATCHIFY_SCENE, PATCHIFY_MAX = 1536, 48
 PARITY_CUTS = {"sweep_eps": {"max_files": 8}, "true_infer_eps": {"n_seeds": 2, "max_files": 8}}
 DEMO_K = 4
-QUANT_OPS = ("conv3x3_relu", "conv3x3_relu_int8", "ps_conv_transpose_2x2",
+QUANT_OPS = ("input_map", "conv3x3_relu", "conv3x3_relu_int8", "ps_conv_transpose_2x2",
              "ps_conv_transpose_2x2_int8", "conv1x1", "max_pool2")
-# the ops a forward must give bit for bit on the card and the CPU
-EXACT_OPS = ("conv3x3_relu_int8", "ps_conv_transpose_2x2_int8", "max_pool2")
+# the ops a forward must give bit for bit on the card and the CPU (the stem's
+# input is the stem_pack kernel on the card)
+EXACT_OPS = ("input_map", "conv3x3_relu_int8", "ps_conv_transpose_2x2_int8", "max_pool2")
 # 3: the int8-out conv mode against its plain version, (B, H, Cin, Cout): the
 # probe's conv at B=2, then Cin 32 and 64 x Cout 12 and 24 x 8² and 20²
 INT8Q_SHAPES = ((2, 256, 128, 128),) + tuple(
@@ -624,6 +645,28 @@ def layout_probe(torch, mode, Cin, Cout, channels, device, side=20, batch=2):
                     break
             bad.append((tap, ci, hit))
     return bad
+
+
+def stem_library(torch, x, cond, t, s):
+    """PyTorch's least composition of the stem pack's output, the yardstick
+    beside the kernel (the port never calls it): the two inputs' space-to-
+    depth views copied with the bf16 cast into the output's channel slices,
+    the t channel copied and the pad zeroed, four launches and no f32
+    intermediate."""
+    B, H, W, Cx = x.shape
+    Cc = 0 if cond is None else cond.shape[-1]
+    C = Cx + Cc
+    n = s * s * C
+    y = torch.empty((B, H // s, W // s, -(-(n + 1) // 8) * 8), dtype=torch.bfloat16,
+                    device=x.device)
+    d = y[..., :n].view(B, H // s, W // s, s, s, C)
+    for lo, v in ((0, x), (Cx, cond)):
+        if v is not None:
+            c = v.shape[-1]
+            d[..., lo:lo + c].copy_(v.view(B, H // s, s, W // s, s, c).permute(0, 1, 3, 2, 4, 5))
+    y[..., n].copy_(t.float().view(B, 1, 1))
+    y[..., n + 1:].zero_()
+    return y
 
 
 def record_ops(quant, qp, x, t):
@@ -1851,7 +1894,8 @@ def main():
 
     from s1s2_torch import bench
     from s1s2_torch.core.schedule import Schedule
-    from s1s2_torch.headline import CKPT_DIR, evidence_set, run_headline
+    from s1s2_torch.headline import (CALIB_TVALS, CKPT_DIR, STEPS, TIMING_ITERS, WARMUP,
+                                     evidence_set, run_headline)
     from s1s2_torch.models import quant
     from s1s2_torch.models.quant import (make_sampler_calib, quant_apply, quantize_unet,
                                          quantize_weights)
@@ -1868,18 +1912,20 @@ def main():
                                        matmul_plain)
     from s1s2_torch.ops.pixel_shuffle import (ps_conv_transpose_2x2_int8,
                                               ps_conv_transpose_2x2_int8_plain, ps_int8_weight)
+    from s1s2_torch.ops.stem_pack import stem_channels, stem_pack, stem_pack_plain
     from s1s2_torch.tools import probe_int8, ref_crossval
     from s1s2_torch.train.checkpoint import load_params
 
     kernels = (conv3x3_relu, conv3x3_relu_int8, fused_ddim_update, matmul, halo_rows_x2)
     path_launches, matmul_launches, int8_launches, int8q_launches = {}, {}, {}, {}
+    stem_launches = {}
 
     def drive(path, fn):
         """Run one path with every launch count set to 0 just before it; keep
         the counts read just after (the matmul's also by mode, the int8 conv
-        by scale mode, and the int8-out conv's apart: only the probe runs
-        it)."""
-        for k in kernels + (conv3x3_int8_q,):
+        by scale mode, and the int8-out conv's and the stem pack's apart:
+        only the probe runs the one, every inference forward the other)."""
+        for k in kernels + (conv3x3_int8_q, stem_pack):
             k.launches = 0
         matmul.mode_launches = dict.fromkeys(matmul.mode_launches, 0)
         conv3x3_relu_int8.mode_launches = dict.fromkeys(conv3x3_relu_int8.mode_launches, 0)
@@ -1889,9 +1935,10 @@ def main():
         matmul_launches[path] = dict(matmul.mode_launches)
         int8_launches[path] = dict(conv3x3_relu_int8.mode_launches)
         int8q_launches[path] = conv3x3_int8_q.launches
+        stem_launches[path] = stem_pack.launches
         print(f"launches in {path}: {path_launches[path]}; matmul by mode "
               f"{matmul_launches[path]}; int8 conv by scale {int8_launches[path]}; int8-out "
-              f"conv {int8q_launches[path]}", flush=True)
+              f"conv {int8q_launches[path]}; stem pack {stem_launches[path]}", flush=True)
         return out
 
     def require(cond, what):
@@ -2032,6 +2079,45 @@ def main():
               f"max_rel_err={rel:.3g} {'ok' if rel <= 1e-6 else 'FAIL'}", flush=True)
         require(rel <= 1e-6, "fused_ddim_update kernel disagrees")
         del xd, ed, got, ref
+
+    with Phase("stem pack vs plain version at the cells' shapes, and its time"):
+        # bit-equal to the composition it replaces, and timed beside it and
+        # beside PyTorch's least composition (stem_library), two inputs
+        # alternating (each larger than the L2 cache)
+        def stem_inputs(B, S, cx, cc, s):
+            """x_t, cond (None: one concatenated input) and t in [0, 1000)."""
+            return (torch.randn((B, S, S, cx), generator=gen, device=dev),
+                    torch.randn((B, S, S, cc), generator=gen, device=dev) if cc else None,
+                    torch.randint(0, 1000, (B,), generator=gen, device=dev, dtype=torch.int32),
+                    s)
+
+        def stem_check(label, args):
+            same = (bool(torch.equal(stem_pack(*args), stem_pack_plain(*args)))
+                    and bool(torch.equal(stem_library(torch, *args), stem_pack_plain(*args))))
+            torch.cuda.synchronize()
+            print(f"check stem_pack {label} s={args[3]}: kernel and copy_ composition "
+                  f"bit-equal to plain={same} {'ok' if same else 'FAIL'}", flush=True)
+            require(same, f"the stem pack disagrees with its plain version at {label}")
+
+        stem = {}
+        for label, B, S, cx, cc, s in STEM_SHAPES:
+            stem_ins = [stem_inputs(B, S, cx, cc, s) for _ in range(2)]
+            for args in stem_ins:
+                stem_check(label, args)
+            nbytes = B * S * S * (cx + cc) * 4 + B * (S // s) ** 2 * stem_channels(cx + cc, s) * 2
+            r = stem[label] = dict(
+                ms=time_ms(stem_pack, stem_ins, 50), plain=time_ms(stem_pack_plain, stem_ins, 20),
+                library=time_ms(lambda *a: stem_library(torch, *a), stem_ins, 20),
+                bound=1e3 * nbytes / HBM_BYTES_PER_S)
+            print(f"time stem_pack {label}: kernel {r['ms']:.4f} ms, plain {r['plain']:.4f} ms, "
+                  f"copy_ composition {r['library']:.4f} ms, bound {r['bound']:.4f} ms (bytes: "
+                  f"{r['bound'] / r['ms']:.1%} of it)", flush=True)
+            del stem_ins
+        # channel counts off the 16-byte path, and an 8x stem on it
+        for cx, cc, s in ((3, 2, 2), (5, 4, 1), (4, 4, 8)):
+            stem_check(f"(3,64,64,{cx})+({cc})", stem_inputs(3, 64, cx, cc, s))
+        err["stem_pack"] = 0.0
+        torch.cuda.empty_cache()
 
     with Phase("probe kernels vs plain versions"):
         for M, K, N in MATMUL_SHAPES:
@@ -2230,7 +2316,7 @@ def main():
         an int8 step in every block after it."""
         e_dev, calls = record_ops(quant, qp, xin, tin)
         rows = check_ops(torch, F, quant, what, calls)
-        require(len(rows) == 20 and sum(r[0] == "conv3x3_relu_int8" for r in rows) == n_int8
+        require(len(rows) == 21 and sum(r[0] == "conv3x3_relu_int8" for r in rows) == n_int8
                 and sum(r[0] == "ps_conv_transpose_2x2_int8" for r in rows) == n_up8,
                 f"{what}: the int8 forward ran {[r[0] for r in rows]}")
         qpc = qp.to("cpu")
@@ -2239,7 +2325,7 @@ def main():
                            device="cpu")(xin.cpu(), tin.cpu())
         gap = float((e_cpu - e_bf16).abs().mean())
         d = float((e_dev.cpu() - e_cpu).abs().mean())
-        print(f"{what}: 20 ops, {sum(r[1] == 0 for r in rows)} bit-equal, the rest within "
+        print(f"{what}: 21 ops, {sum(r[1] == 0 for r in rows)} bit-equal, the rest within "
               f"their bounds (worst |d|/bound of a bf16 op "
               f"{max(r[3] for r in rows if r[0] not in EXACT_OPS):.3g}); "
               f"whole forward mean |card - cpu| {d:.4g} = {d / gap:.3f} x the int8-vs-bf16 "
@@ -2873,6 +2959,22 @@ def main():
         del ins
         torch.cuda.empty_cache()
 
+    with Phase("stem pack: one launch a forward on the inference paths"):
+        exact = {f"headline {spec}": len(CALIB_TVALS) + (1 + WARMUP + TIMING_ITERS) * STEPS
+                 for spec in ("24x4", "16x2", "12")}
+        # bench lines: one warm-up and one timed call; line 2 calibrates first
+        exact.update({"bench line 1": 2 * 50, "bench line 2": 4 + 2 * 5})
+        bad = []
+        for path in STEM_PATHS:
+            n = path_launches[path]
+            forwards = (n["conv3x3_relu"] + n["conv3x3_relu_int8"]) / 13
+            want = exact.get(path, forwards)
+            print(f"stem pack launches in {path}: {stem_launches[path]}, forwards {forwards:g}"
+                  + (f", expected {want}" if path in exact else ""), flush=True)
+            if stem_launches[path] != want or forwards != want:
+                bad.append((path, stem_launches[path], forwards, want))
+        require(not bad, f"stem pack launches (path, launches, forwards, expected): {bad}")
+
     total_launches = {k.__name__: sum(n[k.__name__] for n in path_launches.values())
                       for k in kernels}
     total_matmul = {m: sum(n[m] for n in matmul_launches.values()) for m in ("bf16", "int8")}
@@ -2928,6 +3030,13 @@ def main():
                  "bound_ms": up["bound"],
                  "bound_by": "bytes" if up["bytes"] >= up["operations"] else "operations",
                  "library_ms": up["library"]})
+    for label, B, S, cx, cc, s in STEM_SHAPES:
+        r = stem[label]
+        rows.append({"name": f"stem_pack ({label}: ({B},{S},{S},{cx})+({cc}), s={s})",
+                     "route": "cuda", "source": src + "stem_pack.cu", "replaces": None,
+                     "launches": sum(stem_launches.values()), "max_abs_err": err["stem_pack"],
+                     "ms": r["ms"], "plain_ms": r["plain"], "bound_ms": r["bound"],
+                     "bound_by": "bytes", "library_ms": r["library"]})
     rows.append({"name": "halo_rows_x2 (256,128,128) TH=32", "route": "cuda",
                  "source": src + "halo.cu", "replaces": "tools/probe_pallas_int8.py:133",
                  "launches": total_launches["halo_rows_x2"],

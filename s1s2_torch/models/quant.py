@@ -145,12 +145,14 @@ def quantize_weights(params: Dict[str, torch.Tensor], quant_up: bool = False,
 
 
 def _forward(qp: QuantParams, x_and_cond: torch.Tensor, t_idx: torch.Tensor, *,
-             mode: str, records: Optional[Dict[str, torch.Tensor]] = None):
+             mode: str, records: Optional[Dict[str, torch.Tensor]] = None,
+             cond: Optional[torch.Tensor] = None):
     """mode='calib': bf16 blocks, record each block/up input's absmax (per
     tensor, or per channel when ``qp.act_perchannel``).
     mode='int8': the convs of ``qp.w8`` in int8 with the static scales, the
-    other double-convs and up-convs in bf16."""
-    x = input_map(x_and_cond, t_idx, qp.stem_s2d, torch.bfloat16, pad=True)
+    other double-convs and up-convs in bf16.
+    With ``cond`` the first argument is x_t alone (``input_map``)."""
+    x = input_map(x_and_cond, t_idx, qp.stem_s2d, torch.bfloat16, pad=True, cond=cond)
 
     def record(x, name):
         ax = x.float().abs()
@@ -313,19 +315,22 @@ def quantize_unet(params: Dict[str, torch.Tensor], calib_batches, out_ch: int = 
                        act_perchannel=act_perchannel)
 
 
-def quant_apply(qp: QuantParams, x_and_cond: torch.Tensor, t_idx: torch.Tensor):
-    """int8 forward: (B,H,W,C) → (B,H,W,out_ch) f32."""
+def quant_apply(qp: QuantParams, x_and_cond: torch.Tensor, t_idx: torch.Tensor,
+                cond: Optional[torch.Tensor] = None):
+    """int8 forward: (B,H,W,C) → (B,H,W,out_ch) f32; with ``cond`` the first
+    argument is x_t alone, and the stem reads the two apart."""
     with torch.no_grad():
-        return _forward(qp, x_and_cond, t_idx, mode="int8")
+        return _forward(qp, x_and_cond, t_idx, mode="int8", cond=cond)
 
 
 def make_quant_denoise_fn(qp: QuantParams, cond: torch.Tensor):
-    """Sampler-facing closure ``(x_t, t) → ε̂``, concatenating [x_t, cond]."""
-    cond = cond.float()
+    """Sampler-facing closure ``(x_t, t) → ε̂`` on [x_t, cond], which the
+    stem reads apart (no concatenated copy)."""
+    cond = cond.float().contiguous()
 
     def fn(x_t, t):
         with span("model.forward"):
-            return quant_apply(qp, torch.cat([x_t.float(), cond], dim=-1), t)
+            return quant_apply(qp, x_t, t, cond=cond)
 
     return fn
 

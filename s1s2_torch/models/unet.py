@@ -39,7 +39,7 @@ the local height must divide by 8·``stem_s2d``.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -48,9 +48,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from s1s2_torch.core import random
-from s1s2_torch.ops.conv3x3 import K_MULT, conv3x3_relu, conv3x3_relu_train
-from s1s2_torch.ops.pixel_shuffle import (depth_to_space, ps_conv_transpose_2x2,
-                                          space_to_depth)
+from s1s2_torch.ops.conv3x3 import conv3x3_relu, conv3x3_relu_train
+from s1s2_torch.ops.pixel_shuffle import depth_to_space, ps_conv_transpose_2x2
+from s1s2_torch.ops.stem_pack import stem_pack, stem_pack_plain
 from s1s2_torch.parallel.comm import gather_channels, halo_rows
 from s1s2_torch.parallel.mesh import tp_sharded
 
@@ -85,24 +85,22 @@ def conv1x1(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.
     return y.reshape(*x.shape[:-1], Co) + bias.to(x.dtype)
 
 
-def input_map(x_and_cond: torch.Tensor, t_idx: torch.Tensor, s: int,
-              dtype: torch.dtype, pad: bool = False) -> torch.Tensor:
+def input_map(x_t: torch.Tensor, t_idx: torch.Tensor, s: int, dtype: torch.dtype,
+              pad: bool = False, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(x_t ‖ cond) → s2d stem → ‖ raw t channel (cast to f32 first, then to
-    the compute dtype) → contiguous NHWC in ``dtype``. With ``pad`` (the
-    inference path's stem input) zero channels follow up to a multiple of 8
-    (129 → 136 for the 4× stem, 33 → 40, 9 → 16), in the same pass: the
-    conv kernel's TMA reads 16-byte pixel rows, and the ``inc`` weight's
-    missing rows count as zeros (``ops/conv3x3.py``; the CPU's plain
-    version reads the first Cin channels)."""
-    xf = x_and_cond.float()
-    if s > 1:
-        xf = space_to_depth(xf, s)
-    B, H, W, C = xf.shape
-    parts = [xf, t_idx.float().reshape(B, 1, 1, 1).expand(B, H, W, 1)]
-    extra = -(C + 1) % K_MULT["bf16"]
-    if pad and extra:
-        parts.append(xf.new_zeros((1, 1, 1, 1)).expand(B, H, W, extra))
-    return torch.cat(parts, dim=-1).to(dtype).contiguous()
+    the compute dtype) → contiguous NHWC in ``dtype``; without ``cond`` x_t
+    is the concatenated input. With ``pad`` (the inference path's stem
+    input) zero channels follow up to a multiple of 8 (129 → 136 for the 4×
+    stem, 33 → 40, 9 → 16), in the same pass: the conv kernel's TMA reads
+    16-byte pixel rows, and the ``inc`` weight's missing rows count as zeros
+    (``ops/conv3x3.py``; the CPU's plain version reads the first Cin
+    channels). The padded bf16 input is one pass of ``ops/stem_pack.py``
+    (one kernel on a card); the training path (no ``pad``) and other dtypes
+    take PyTorch's composition, its plain version."""
+    if pad and dtype == torch.bfloat16:
+        return stem_pack(x_t.float().contiguous(), None if cond is None
+                         else cond.float().contiguous(), t_idx, s)
+    return stem_pack_plain(x_t, cond, t_idx, s, dtype, pad)
 
 
 def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -173,6 +173,8 @@ class Kernels:
             "s1s2k_matmul": [P, P, P, P, I, I, I, I, I, P],
             # x, y, H, W, C, TH, device, stream
             "s1s2k_halo_rows_x2": [P, P, I, I, I, I, I, P],
+            # x, cond (or null), t, t kind, y, B, H, W, Cx, Cc, s, P, device, stream
+            "s1s2k_stem_pack": [P, P, P, I, P, I, I, I, I, I, I, I, I, P],
         }
         for name, argtypes in sigs.items():
             fn = getattr(self.lib, name)

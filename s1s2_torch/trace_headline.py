@@ -38,9 +38,11 @@ from s1s2_torch import bench
 from s1s2_torch.headline import DATA_SEED, STEPS, T_START, data, prepare
 from s1s2_torch.models.quant import make_quant_denoise_fn
 from s1s2_torch.sampling.samplers import ddim_anchored
+from s1s2_torch.utils.profiling import spans
 
 OURS = ("conv3x3_int8_kernel", "quantize_pad_kernel", "conv3x3_bf16_kernel",
-        "ddim_update_kernel", "matmul_kernel", "transpose_i8_kernel", "halo_rows_x2_kernel")
+        "ddim_update_kernel", "matmul_kernel", "transpose_i8_kernel", "halo_rows_x2_kernel",
+        "stem_pack_vec_kernel", "stem_pack_scalar_kernel")
 
 
 def _device_us(evt) -> float:
@@ -81,11 +83,14 @@ def profile(step: Callable[[], object], iters: int, warmup: int, trace: str = ""
         sync()
         host_ms = (time.perf_counter() - t0) * 1e3 / iters
     wall_ms = start.elapsed_time(end) / iters if cuda else host_ms
+    # the program's spans are annotations whose device time is their kernels'
+    annotations = {s.name for s in spans()}
     rows: List[Dict] = []
     for evt in prof.key_averages():
         if cuda:
             us = _device_us(evt)
-            keep = getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA
+            keep = (getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA
+                    and evt.key not in annotations)
         else:
             us, keep = float(evt.self_cpu_time_total), True
         if us > 0 and keep:

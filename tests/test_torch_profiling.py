@@ -19,7 +19,7 @@ from s1s2_torch.core.parametrize import q_sample
 from s1s2_torch.core.schedule import Schedule
 from s1s2_torch.models.quant import make_quant_denoise_fn, make_sampler_calib, quantize_unet
 from s1s2_torch.models.unet import init_params, load_unet
-from s1s2_torch.ops import conv3x3, fused_elementwise, halo, matmul
+from s1s2_torch.ops import conv3x3, fused_elementwise, halo, matmul, stem_pack
 from s1s2_torch.sampling.dpm_solver import dpm_solver_2m
 from s1s2_torch.sampling.grids import round_unique_grid
 from s1s2_torch.sampling.samplers import ddim_anchored, make_denoise_fn
@@ -204,9 +204,9 @@ def _cell_call(cell):
 
 
 # spans a call: sampler.call, q_sample, then per denoiser call a step, a
-# forward and 13 conv wrappers, and in DDIM the fused update
-SPANS_A_CALL = {"student24x4.ddim1.b128": 18, "unet96_eps.dpm5_int8.b64": 77,
-                "unet96_eps.ddim20_bf16.b64": 322}
+# forward, the stem pack and 13 conv wrappers, and in DDIM the fused update
+SPANS_A_CALL = {"student24x4.ddim1.b128": 19, "unet96_eps.dpm5_int8.b64": 82,
+                "unet96_eps.ddim20_bf16.b64": 342}
 
 
 @pytest.mark.parametrize("cell", sorted(SPANS_A_CALL))
@@ -229,7 +229,7 @@ def test_each_cells_sampler_makes_its_spans(cell):
     for s in recs:
         if s.name == "model.forward":
             assert recs[s.parent].name == "sampler.step"
-        if s.name.startswith("kernel.conv"):
+        if s.name.startswith("kernel.conv") or s.name == "kernel.stem_pack":
             assert recs[s.parent].name == "model.forward"
 
 
@@ -241,7 +241,8 @@ def cuda():
 
 
 LAUNCH_COUNTERS = (conv3x3.conv3x3_relu, conv3x3.conv3x3_relu_int8, conv3x3.conv3x3_int8_q,
-                   fused_elementwise.fused_ddim_update, matmul.matmul, halo.halo_rows_x2)
+                   fused_elementwise.fused_ddim_update, matmul.matmul, halo.halo_rows_x2,
+                   stem_pack.stem_pack)
 
 
 @pytest.mark.gpu
@@ -273,7 +274,7 @@ def test_gpu_syncs_and_kernel_spans_on_the_card(cuda):
     recs = spans()
     assert [(s.name, s.syncs) for s in recs[:3]] == [("copy", 1), ("add", 0), ("item", 1)]
     kernels = sum(s.name.startswith("kernel.") for s in recs)
-    assert kernels == sum(f.launches for f in LAUNCH_COUNTERS) - before == 2 * 13 + 2
+    assert kernels == sum(f.launches for f in LAUNCH_COUNTERS) - before == 2 * 14 + 2
     q = next(s for s in recs if s.name == "q_sample")
     assert q.syncs == 2  # its two (B,) coefficient vectors, copied from the host
     assert torch.cuda.get_sync_debug_mode() == 0

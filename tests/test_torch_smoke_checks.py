@@ -42,9 +42,9 @@ def test_record_ops_sees_every_op_of_the_int8_forward():
     qp, x, t, eps, calls = _forward()
     assert torch.equal(eps, quant.quant_apply(qp, x, t))
     names = [c[0] for c in calls]
-    assert len(names) == 20 and names.count("conv3x3_relu_int8") == 12
+    assert len(names) == 21 and names.count("conv3x3_relu_int8") == 12
     assert names.count("max_pool2") == 3 and names.count("ps_conv_transpose_2x2") == 3
-    assert names[0] == "conv3x3_relu" and names[-1] == "conv1x1"
+    assert names[:2] == ["input_map", "conv3x3_relu"] and names[-1] == "conv1x1"
     assert all(getattr(quant, name) is fn for name, fn in before.items())
 
 
@@ -70,14 +70,14 @@ def _nudged(calls, name, ulps):
 def test_record_ops_sees_the_int8_up_convs_of_quant_up():
     qp, x, t, eps, calls = _forward(quant_up=True)
     names = [c[0] for c in calls]
-    assert len(names) == 20 and names.count("ps_conv_transpose_2x2_int8") == 3
+    assert len(names) == 21 and names.count("ps_conv_transpose_2x2_int8") == 3
     assert "ps_conv_transpose_2x2" not in names
     rows = chip_smoke.check_ops(torch, F, quant, "cpu", calls)
     assert all(r[1] == 0 for r in rows)
 
 
 @pytest.mark.parametrize("name", ["conv3x3_relu_int8", "max_pool2",
-                                  "ps_conv_transpose_2x2_int8"])
+                                  "ps_conv_transpose_2x2_int8", "input_map"])
 def test_check_ops_requires_bit_equality_of_int8_convs_and_pools(name):
     calls, i = _nudged(_forward(quant_up=name == "ps_conv_transpose_2x2_int8")[-1], name, 1)
     with pytest.raises(AssertionError, match=f"op {i} {name} "):
@@ -92,6 +92,18 @@ def test_check_ops_allows_a_bf16_op_one_ulp_and_no_more(name):
     calls, i = _nudged(calls, name, 64)
     with pytest.raises(AssertionError, match=f"op {i} {name} "):
         chip_smoke.check_ops(torch, F, quant, "cpu", calls)
+
+
+@pytest.mark.parametrize("cx,cc,s", [(4, 4, 4), (8, 0, 1), (3, 2, 2), (5, 4, 1)])
+def test_stem_library_yardstick_computes_the_stem_pack(cx, cc, s):
+    """The PyTorch composition timed beside the stem pack gives its plain
+    version's bits."""
+    from s1s2_torch.ops.stem_pack import stem_pack_plain
+
+    g = torch.Generator().manual_seed(cx + cc + s)
+    x, cond = torch.randn((3, 16, 16, cx), generator=g), torch.randn((3, 16, 16, cc), generator=g)
+    args = (x, cond if cc else None, torch.tensor([0, 257, 999], dtype=torch.int32), s)
+    assert torch.equal(chip_smoke.stem_library(torch, *args), stem_pack_plain(*args))
 
 
 # ``cuobjdump -sass`` text of the kernels as built for sm_90a, cut to the
